@@ -8,9 +8,6 @@
 # zero, and `true_amplitude` matches the continuous-transform amplitude
 # convention.  Executed by CI (tests/test_walkthroughs.py); every claim is
 # an assertion.
-#
-# On TPU these pipelines compile to MXU matmul-FFT programs; on the CPU
-# test backend the math is identical through the XLA FFT.
 
 # %%
 import numpy as np
@@ -98,8 +95,8 @@ def main():
     # %% [markdown]
     # ## High-precision variant
     #
-    # The same pipeline at float64-grade accuracy on hardware without
-    # float64: `engine="hp"` (int8-limb MXU DFT + double-word arithmetic).
+    # The same pipeline at float64-grade accuracy: `engine="hp"` (native
+    # float64 under x64, else int8-limb DFT + double-word arithmetic).
 
     # %%
     ft_hp = xrft_tpu.fft(nda, engine="hp")

@@ -103,11 +103,10 @@ def main():
         npt.assert_allclose(peak, A**2 / 4, rtol=0.05)
 
     # %% [markdown]
-    # ## Exact conservation at float64 grade, on chip
+    # ## Exact conservation at float64 grade
     #
     # The hp engine holds Parseval to ~1e-13 even for the windowed
-    # pipeline's scalings (see scripts/chip_checks.py for the on-chip
-    # pins).
+    # pipeline's scalings (scripts/chip_checks.py pins it on the GPU).
 
     # %%
     da32 = LabeledArray(rng.randn(128).astype(np.float32), dims=("x",),

@@ -1,9 +1,8 @@
-"""float64-grade spectra on a TPU with no float64.
+"""float64-grade spectra through ``engine='hp'`` and ``fft64``.
 
-Demonstrates the df64 (double-word float32) high-precision path: on TPU
-the transform runs as compensated VPU arithmetic inside a Pallas kernel
-(~2e-14 relative accuracy); on CPU/GPU the native float64 FFT is used, so
-the same code meets 1e-12 everywhere.
+With x64 on, the hp path runs native float64 (the c128 XLA FFT); without
+it, the df64 (double-word float32) emulation with exact int8-limb DFT
+dots (~1e-12 relative accuracy).  The same code meets 1e-10 either way.
 """
 
 import numpy as np

@@ -63,7 +63,6 @@ print(f"amplitude-corrected spectrum peak: {peak:.4f} "
 # (doubling on the real axis except DC/Nyquist); with density scaling,
 # hann window, window_correction and non-overlapping segments the
 # segment mean IS scipy.signal.welch(noverlap=0, detrend=False).
-# On TPU this path runs as one fused raw-layout program.
 # ---------------------------------------------------------------------------
 import scipy.signal as sps
 

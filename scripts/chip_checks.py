@@ -1,16 +1,20 @@
-"""On-chip validation suite: runs the checks that only mean something on
-real TPU hardware (accuracy of the split-complex engine, the df64
-high-precision path, and end-to-end pipeline parity).
+"""On-GPU validation suite: scipy/numpy oracles for the estimators and
+namesakes beyond chip_smoke.py's phases, compiled for the card at small
+sizes (f32 FFT engine parity, the pipeline estimators, the int8-limb DFT,
+the hp float64 configs and the scipy namesakes).
 
-Usage (default env routes to the TPU):  python scripts/chip_checks.py
+Usage, on a machine with an NVIDIA GPU:  python scripts/chip_checks.py
+(also run by ``JAX_PLATFORMS=cuda python -m pytest tests/ -m gpu``).
 
-Prints one PASS/FAIL line per check; exits nonzero on failure.
+Prints one PASS/FAIL line per check; exits nonzero on failure or when
+JAX finds no GPU.
 """
 
 import os
 import sys
 
-sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+sys.path.insert(0, ROOT)
 
 import numpy as np
 
@@ -18,12 +22,13 @@ import jax
 import jax.numpy as jnp
 
 
-def main():
+def run_checks() -> int:
+    """Run every check, printing one line each; returns the failures."""
     import xrft_tpu
     from xrft_tpu import LabeledArray
     from xrft_tpu.ops import fft_core
     from xrft_tpu.ops.carray import to_numpy
-    from xrft_tpu.ops.df64_fft import df64_fft_nd, df64_to_numpy
+    from xrft_tpu.ops.df64_fft import df64_to_numpy
 
     failures = 0
 
@@ -44,20 +49,13 @@ def main():
     check("f32 engine 2-D fftn rel err",
           np.abs(got[0] - ref).max() / np.abs(ref).max(), 1e-6)
 
-    # 2. df64 engine: 1e-10 contract (measures ~1e-14)
-    xx = rng.randn(8, 1024).astype(np.float32)
-    got = df64_to_numpy(df64_fft_nd(xx, [-1], "fft", interpret=False))
-    ref = np.fft.fft(xx.astype(np.float64), axis=-1)
-    check("df64 engine fft rel err",
-          np.abs(got - ref).max() / np.abs(ref).max(), 1e-10)
-
-    # 2b. int8-limb MXU DFT (Ozaki-style spike)
+    # 2. int8-limb DFT (exact integer dots), the emulated hp engine
     from xrft_tpu.ops.int8_dft import int8_dft_last
 
     x8 = rng.randn(16, 1024).astype(np.float32)
     got = df64_to_numpy(jax.jit(lambda a: int8_dft_last(a, -1))(x8))
     ref = np.fft.fft(x8.astype(np.float64), axis=-1)
-    check("int8-limb MXU DFT rel err",
+    check("int8-limb DFT rel err",
           np.abs(got - ref).max() / np.abs(ref).max(), 1e-10)
 
     # 3. fft64 public API: Parseval at 1e-12
@@ -120,7 +118,7 @@ def main():
 
     # 4a2. overlapping Welch segments (segment_overlap; strided slice-stack
     # HLOs) vs scipy.signal.welch, and coherence vs scipy.signal.coherence —
-    # the new estimator surfaces compiled on the real chip
+    # the estimator surfaces compiled for the card
     pso = xrft_tpu.power_spectrum(
         daw, dim=["x"], real_dim="x", window="hann",
         chunks_to_segments=True, segment_overlap=S // 2,
@@ -176,9 +174,8 @@ def main():
           1e-10)
 
     # 4a4. spectrogram vs scipy.signal.spectrogram on a >=1024-segment
-    # workload (VERDICT r3 item 5: the on-chip leg of the three-legged
-    # evidence; the off-chip oracle is tests/test_spectra.py, the perf
-    # number is bench.py spectrogram_flagship_ms)
+    # workload (the CPU oracle is tests/test_spectra.py, the time is
+    # bench.py spectrogram_flagship_ms)
     fs_sg, seg_sg = 1000.0, 256
     hop_sg = seg_sg - seg_sg // 8
     n_sg = 1024 * hop_sg + seg_sg  # exactly 1025 segments at scipy hop
@@ -199,7 +196,7 @@ def main():
 
     # 4a6. stft / istft (round 4): forward vs scipy.signal.stft and the
     # NOLA-normalized overlap-add inverse round trip, compiled on the
-    # real chip (off-chip oracle: tests/test_stft.py)
+    # card (CPU oracle: tests/test_stft.py)
     fs_st, seg_st, n_st = 10.0, 64, 300
     x_st = (np.sin(2 * np.pi * 1.3 * np.arange(n_st) / fs_st)
             + 0.5 * rng.randn(n_st)).astype(np.float32)
@@ -215,7 +212,7 @@ def main():
     check("istft roundtrip abs err",
           np.abs(np.asarray(back_st.values) - x_st).max(), 1e-5)
 
-    # 4a3. 3-D spherical-shell isotropize conservation on chip
+    # 4a3. 3-D spherical-shell isotropize conservation
     N3d = 64
     d3d = LabeledArray(rng.randn(N3d, N3d, N3d).astype(np.float32),
                        dims=["z", "y", "x"],
@@ -232,11 +229,8 @@ def main():
     check("3-D shell isotropize conservation rel err",
           abs(t_iso - t_ps) / abs(t_ps), 1e-4)
 
-    # 4b. compiled Pallas binned-sum kernel vs f64 host bincount oracle at
-    # a large-grid size (2048^2 points, 512 bins — above ONEHOT_MAX so the
-    # real Mosaic kernel runs; repo tests only exercise interpret mode on
-    # CPU, so this is the one place the compiled kernel's numerics are
-    # pinned against toolchain changes)
+    # 4b. large-grid binned sum vs f64 host bincount oracle at 2048^2
+    # points, 512 bins (512 scatter-add groups)
     from xrft_tpu.ops import binning
 
     Nb = 2048
@@ -251,88 +245,88 @@ def main():
     ref_b = np.bincount(codes_b[mask_b],
                         weights=vals_b.astype(np.float64)[mask_b],
                         minlength=nbins_b)
-    check("pallas binned_sum 2048^2 rel err",
+    check("large-grid binned_sum 2048^2 rel err",
           np.abs(got_b - ref_b).max() / np.abs(ref_b).max(), 1e-4)
 
-    # ---- 5. engine='hp': BASELINE configs 1-4 end-to-end at <= 1e-10 on
-    # the chip (VERDICT round-1 item 3; BASELINE.md precision contract)
+    # ---- 5. engine='hp': BASELINE configs 1-4 end-to-end at <= 1e-10
+    # (BASELINE.md precision contract), native float64 under x64
+    with jax.enable_x64(True):
+        # config 1: 1-D roundtrip + PSD
+        N1 = 512
+        t = np.arange(N1) * 0.25
+        sig1 = rng.randn(N1).astype(np.float32)
+        d1 = LabeledArray(sig1, dims=["t"], coords={"t": t})
+        ft = xrft_tpu.fft(d1, dim=["t"], engine="hp")
+        back = xrft_tpu.ifft(ft, dim=["freq_t"], engine="hp",
+                             lag=[float(t[N1 // 2])])
+        check("hp config1 roundtrip abs err",
+              np.abs(back.values.real - sig1.astype(np.float64)).max(), 1e-10)
+        ps1 = xrft_tpu.power_spectrum(d1, dim=["t"], engine="hp")
+        F1 = np.fft.fftshift(np.fft.fft(sig1.astype(np.float64))) * 0.25
+        ref1 = np.abs(F1) ** 2 / (N1 * 0.25)
+        check("hp config1 PSD rel err",
+              np.abs(ps1.values - ref1).max() / ref1.max(), 1e-10)
 
-    # config 1: 1-D roundtrip + PSD
-    N1 = 512
-    t = np.arange(N1) * 0.25
-    sig1 = rng.randn(N1).astype(np.float32)
-    d1 = LabeledArray(sig1, dims=["t"], coords={"t": t})
-    ft = xrft_tpu.fft(d1, dim=["t"], engine="hp")
-    back = xrft_tpu.ifft(ft, dim=["freq_t"], engine="hp",
-                         lag=[float(t[N1 // 2])])
-    check("hp config1 roundtrip abs err",
-          np.abs(back.values.real - sig1.astype(np.float64)).max(), 1e-10)
-    ps1 = xrft_tpu.power_spectrum(d1, dim=["t"], engine="hp")
-    F1 = np.fft.fftshift(np.fft.fft(sig1.astype(np.float64))) * 0.25
-    ref1 = np.abs(F1) ** 2 / (N1 * 0.25)
-    check("hp config1 PSD rel err",
-          np.abs(ps1.values - ref1).max() / ref1.max(), 1e-10)
+        # config 2: 2-D linear-detrend + hann windowed PSD (jit-compiled)
+        N2 = 256
+        d2 = LabeledArray(rng.randn(N2, N2).astype(np.float32), dims=["y", "x"],
+                          coords={"y": np.arange(N2) * 0.5,
+                                  "x": np.arange(N2) * 0.5})
+        ps2 = jax.jit(lambda d: xrft_tpu.power_spectrum(
+            d, dim=["y", "x"], window="hann", detrend="linear",
+            engine="hp").data)(d2)
+        v = np.asarray(d2.values, np.float64)
+        i2 = np.arange(N2) - (N2 - 1) / 2
+        vm = v - v.mean()
+        a1 = (vm * i2[:, None]).sum() / ((i2**2).sum() * N2)
+        a2 = (vm * i2[None, :]).sum() / ((i2**2).sum() * N2)
+        vd = vm - a1 * i2[:, None] - a2 * i2[None, :]
+        Fo2 = np.fft.fftshift(np.fft.fftn(vd * (w2d := np.outer(
+            sps.windows.hann(N2, sym=False),
+            sps.windows.hann(N2, sym=False))))) * 0.25
+        ref2 = np.abs(Fo2) ** 2 * (1 / (N2 * 0.5)) ** 2
+        check("hp config2 windowed+detrended PSD rel err",
+              np.abs(np.asarray(ps2) - ref2).max() / ref2.max(), 1e-10)
 
-    # config 2: 2-D linear-detrend + hann windowed PSD (jit-compiled)
-    N2 = 256
-    d2 = LabeledArray(rng.randn(N2, N2).astype(np.float32), dims=["y", "x"],
-                      coords={"y": np.arange(N2) * 0.5,
-                              "x": np.arange(N2) * 0.5})
-    ps2 = jax.jit(lambda d: xrft_tpu.power_spectrum(
-        d, dim=["y", "x"], window="hann", detrend="linear",
-        engine="hp").data)(d2)
-    v = np.asarray(d2.values, np.float64)
-    i2 = np.arange(N2) - (N2 - 1) / 2
-    vm = v - v.mean()
-    a1 = (vm * i2[:, None]).sum() / ((i2**2).sum() * N2)
-    a2 = (vm * i2[None, :]).sum() / ((i2**2).sum() * N2)
-    vd = vm - a1 * i2[:, None] - a2 * i2[None, :]
-    Fo2 = np.fft.fftshift(np.fft.fftn(vd * (w2d := np.outer(
-        sps.windows.hann(N2, sym=False),
-        sps.windows.hann(N2, sym=False))))) * 0.25
-    ref2 = np.abs(Fo2) ** 2 * (1 / (N2 * 0.5)) ** 2
-    check("hp config2 windowed+detrended PSD rel err",
-          np.abs(np.asarray(ps2) - ref2).max() / ref2.max(), 1e-10)
+        # config 3: isotropic PSD conservation (compensated bin sums)
+        N3 = 512
+        d3 = LabeledArray(rng.randn(N3, N3).astype(np.float32), dims=["y", "x"],
+                          coords={"y": np.arange(N3) * 1.0,
+                                  "x": np.arange(N3) * 1.0})
+        ps3 = xrft_tpu.power_spectrum(d3, dim=["y", "x"], engine="hp")
+        iso3 = xrft_tpu.isotropic_power_spectrum(d3, dim=["y", "x"],
+                                                 truncate=False, engine="hp")
+        tot_ps = np.asarray(ps3.values).sum()
+        tot_iso = np.asarray(iso3.values).sum()
+        check("hp config3 isotropic conservation rel err",
+              abs(tot_iso - tot_ps) / abs(tot_ps), 1e-10)
 
-    # config 3: isotropic PSD conservation (compensated bin sums)
-    N3 = 512
-    d3 = LabeledArray(rng.randn(N3, N3).astype(np.float32), dims=["y", "x"],
-                      coords={"y": np.arange(N3) * 1.0,
-                              "x": np.arange(N3) * 1.0})
-    ps3 = xrft_tpu.power_spectrum(d3, dim=["y", "x"], engine="hp")
-    iso3 = xrft_tpu.isotropic_power_spectrum(d3, dim=["y", "x"],
-                                             truncate=False, engine="hp")
-    tot_ps = np.asarray(ps3.values).sum()
-    tot_iso = np.asarray(iso3.values).sum()
-    check("hp config3 isotropic conservation rel err",
-          abs(tot_iso - tot_ps) / abs(tot_ps), 1e-10)
-
-    # config 4: cross_spectrum with rfft over time on (64, 128, 128)
-    B4, N4 = 64, 128
-    d4a = LabeledArray(rng.randn(B4, N4, N4).astype(np.float32),
-                       dims=["time", "y", "x"],
-                       coords={"time": np.arange(B4) * 2.0,
-                               "y": np.arange(N4) * 1.0,
-                               "x": np.arange(N4) * 1.0})
-    d4b = LabeledArray(rng.randn(B4, N4, N4).astype(np.float32),
-                       dims=["time", "y", "x"], coords=d4a.coords)
-    cs = xrft_tpu.cross_spectrum(d4a, d4b, dim=["time"], real_dim="time",
-                                 engine="hp")
-    va, vb = (np.asarray(d.values, np.float64) for d in (d4a, d4b))
-    lt = 2.0 * (B4 // 2)
-    ftq = np.fft.rfftfreq(B4, 2.0)
-    ph = np.exp(-2j * np.pi * ftq * lt)[:, None, None]
-    Fa = np.fft.rfft(va, axis=0) * 2.0 * ph
-    Fb = np.fft.rfft(vb, axis=0) * 2.0 * ph
-    refc = Fa * np.conj(Fb)
-    fct = np.full(B4 // 2 + 1, 2.0)
-    fct[0] = fct[-1] = 1.0
-    refc = refc * fct[:, None, None] / (B4 * 2.0)
-    check("hp config4 cross_spectrum rel err",
-          np.abs(cs.values - refc).max() / np.abs(refc).max(), 1e-10)
+        # config 4: cross_spectrum with rfft over time on (64, 128, 128)
+        B4, N4 = 64, 128
+        d4a = LabeledArray(rng.randn(B4, N4, N4).astype(np.float32),
+                           dims=["time", "y", "x"],
+                           coords={"time": np.arange(B4) * 2.0,
+                                   "y": np.arange(N4) * 1.0,
+                                   "x": np.arange(N4) * 1.0})
+        d4b = LabeledArray(rng.randn(B4, N4, N4).astype(np.float32),
+                           dims=["time", "y", "x"], coords=d4a.coords)
+        cs = xrft_tpu.cross_spectrum(d4a, d4b, dim=["time"], real_dim="time",
+                                     engine="hp")
+        va, vb = (np.asarray(d.values, np.float64) for d in (d4a, d4b))
+        lt = 2.0 * (B4 // 2)
+        ftq = np.fft.rfftfreq(B4, 2.0)
+        ph = np.exp(-2j * np.pi * ftq * lt)[:, None, None]
+        Fa = np.fft.rfft(va, axis=0) * 2.0 * ph
+        Fb = np.fft.rfft(vb, axis=0) * 2.0 * ph
+        refc = Fa * np.conj(Fb)
+        fct = np.full(B4 // 2 + 1, 2.0)
+        fct[0] = fct[-1] = 1.0
+        refc = refc * fct[:, None, None] / (B4 * 2.0)
+        check("hp config4 cross_spectrum rel err",
+              np.abs(cs.values - refc).max() / np.abs(refc).max(), 1e-10)
 
     # analytic signal + periodogram namesake (round-4 additions):
-    # scipy oracles on the chip's split-complex engine
+    # scipy oracles
     import scipy.signal as sps
 
     nh = 4096
@@ -352,7 +346,7 @@ def main():
     check("periodogram vs scipy rel err",
           np.abs(gp - pp).max() / pp.max(), 1e-6)
 
-    # DCT/DST family: every type on the split-complex engine vs scipy.fft
+    # DCT/DST family: every type vs scipy.fft
     import scipy.fft as sfft
 
     for typ in (1, 2, 3, 4):
@@ -370,7 +364,7 @@ def main():
     check("dct/idct round-trip rel err",
           np.abs(rt - xh).max() / np.abs(xh).max(), 1e-5)
 
-    # chirp-Z / zoom FFT on the split-complex engine vs scipy
+    # chirp-Z / zoom FFT vs scipy
     # |log w| * max(n,m)^2/2 must stay inside f32's exponent range
     mz, wz, az = 512, (1 - 1e-9) * np.exp(-2j * np.pi / 512), np.exp(0.2j)
     gz = np.asarray(xrft_tpu.czt(dh, dim="t", m=mz, w=wz, a=az).values)
@@ -414,7 +408,7 @@ def main():
     check("correlate valid rel err",
           np.abs(gx - wantx).max() / np.abs(wantx).max(), 1e-5)
 
-    # Generalized Lomb-Scargle (one MXU matmul) vs scipy on an uneven
+    # Generalized Lomb-Scargle (one matmul) vs scipy on an uneven
     # grid, batched where scipy loops
     tun = np.sort(rng.uniform(0.0, 30.0, 1024)).astype(np.float64)
     yun = (np.cos(2.3 * tun) + 0.3 * rng.randn(8, 1024)).astype(np.float32)
@@ -485,7 +479,7 @@ def main():
     check("hilbert2 512^2 rel err",
           np.abs(gh2[0] - wanth2).max() / np.abs(wanth2).max(), 1e-5)
 
-    # Savitzky-Golay smoothing (interp edge matrices on the MXU) vs scipy
+    # Savitzky-Golay smoothing (interp edge matrices as dots) vs scipy
     gsg = np.asarray(xrft_tpu.savgol_filter(dp, 11, 3, deriv=1, delta=0.25,
                                             dim="t").values)
     wantsg = sps.savgol_filter(xp.astype(np.float64), 11, 3, deriv=1,
@@ -493,7 +487,19 @@ def main():
     check("savgol_filter w=11 d1 rel err",
           np.abs(gsg - wantsg).max() / np.abs(wantsg).max(), 1e-5)
 
-    sys.exit(1 if failures else 0)
+    return failures
+
+
+def main():
+    if jax.default_backend() != "gpu":
+        print(f"chip_checks: no GPU: JAX's default backend is "
+              f"{jax.default_backend()!r}; these checks run only on an "
+              f"NVIDIA GPU", file=sys.stderr)
+        sys.exit(2)
+    from xrft_tpu.config import enable_compile_cache
+
+    enable_compile_cache(ROOT)
+    sys.exit(1 if run_checks() else 0)
 
 
 if __name__ == "__main__":

@@ -111,9 +111,9 @@ def test_config4_cross_spectrum_rfft_time(mode):
 
 
 def test_config5_sharded_3d_fft_parity():
-    """Sharded 3-D fft via ICI all_to_all pencil transposes (dask-chunk
-    parity at 8-virtual-device scale; 2048^3/v5e-16 is the hardware-scale
-    target)."""
+    """Sharded 3-D fft via all_to_all pencil transposes (dask-chunk
+    parity at 8-virtual-device scale; chip_smoke.py --cards 4 runs 1024^3
+    on four GPUs)."""
     if len(jax.devices()) < 8:
         pytest.skip("needs 8 virtual devices")
     from xrft_tpu.ops import carray

@@ -137,7 +137,7 @@ def test_convolve_is_jit_traceable():
 
 
 # ---------------------------------------------------------------------------
-# method='direct' (MXU conv_general_dilated) — scipy.signal.convolve/
+# method='direct' (conv_general_dilated) — scipy.signal.convolve/
 # correlate(method='direct') parity, dispatch, and error contracts
 # ---------------------------------------------------------------------------
 
@@ -264,7 +264,7 @@ def test_convolve_direct_is_jit_traceable():
 
 
 def test_convolve_direct_split_complex():
-    """The split-pair (TPU) representation through the direct route."""
+    """The split-pair representation through the direct route."""
     rng = np.random.RandomState(17)
     x = rng.randn(24) + 1j * rng.randn(24)
     k = rng.randn(6) + 1j * rng.randn(6)

@@ -124,7 +124,7 @@ def test_czt_is_jit_traceable():
 
 def test_czt_dynamic_range_warning():
     """An off-circle spiral whose chirp exceeds the compute dtype's
-    exponent range warns at trace time (on-chip f32 would over/underflow
+    exponent range warns at trace time (device f32 would over/underflow
     silently otherwise)."""
     n = 4096
     rng = np.random.RandomState(9)

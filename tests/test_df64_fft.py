@@ -1,16 +1,17 @@
 """df64 (emulated float64) arithmetic and transforms.
 
-The strict ~1e-14 engine accuracy is a TPU contract (XLA:TPU / Mosaic
-compile the error-free transformations faithfully; XLA:CPU lets LLVM
-contract FMAs, collapsing them — see xrft_tpu/ops/df64.py).  Here we pin:
+The float32 primitives never rely on a rounded product (see
+xrft_tpu/ops/df64.py), so the compiled engine keeps its ~1e-14 accuracy
+even where XLA:CPU's LLVM backend contracts multiplies into FMAs.  Here we
+pin:
 
-  * exactness of the primitives in strict-IEEE numpy simulation,
-  * engine correctness at f32-or-better tolerance through the CPU paths,
-  * fft64/ifft64 1e-12 parity (on CPU they use the native f64 path; the
-    on-chip df64 path is pinned by scripts/chip_checks.py, measured
-    2.1e-14 for n=256 and 1.3e-14 for n=1024).
+  * exactness of the primitives in strict-IEEE (eager) evaluation,
+  * the compiled engine at ~1e-12 against numpy complex128, direct and
+    through the four-step recursion,
+  * fft64/ifft64 1e-12 parity (on CPU they use the native f64 path).
 """
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import numpy.testing as npt
@@ -33,6 +34,31 @@ def test_primitive_exactness_numpy_sim():
     p, e = df64.two_prod(a, b)
     exact = a.astype(np.float64) * b.astype(np.float64)
     npt.assert_array_equal(np.float64(p) + np.float64(e), exact)
+    npt.assert_array_equal(np.asarray(p), a * b)   # p is fl(a*b)
+
+
+
+@pytest.mark.parametrize("dtype,hi_bits", [(np.float32, 12), (np.float64, 27)])
+def test_split_masks_the_significand(dtype, hi_bits):
+    """split() halves are exact (hi + lo == a) and hi carries at most
+    ``hi_bits`` significant bits, for both widths it serves."""
+    rng = np.random.RandomState(1)
+    a = (rng.randn(500) * 10.0 ** rng.randint(-8, 8, 500)).astype(dtype)
+    hi, lo = (np.asarray(v) for v in df64.split(jnp.asarray(a)))
+    assert hi.dtype == dtype
+    npt.assert_array_equal(hi + lo, a)
+    mant, _ = np.frexp(hi)
+    npt.assert_array_equal(np.ldexp(mant, hi_bits) % 1, 0)
+
+
+def test_two_prod_float64_planes_keep_float64_accuracy():
+    """On the float64 planes of the native hp mode two_prod's p + e is
+    the product to float64 accuracy."""
+    rng = np.random.RandomState(2)
+    a, b = rng.randn(2, 1000)
+    p, e = (np.asarray(v) for v in df64.two_prod(jnp.asarray(a),
+                                                  jnp.asarray(b)))
+    npt.assert_allclose(p + e, a * b, rtol=4e-16, atol=0)
 
 
 def test_df64_dot_accuracy_numpy_sim():
@@ -49,6 +75,41 @@ def test_df64_dot_accuracy_numpy_sim():
     ref = np.dot(x.astype(np.float64), w64)
     got = df64.join_np(acc[0], acc[1])
     assert abs(got - ref) / abs(ref) < 1e-12
+
+
+@pytest.mark.parametrize("n", [8, 100, 256])
+def test_df64_direct_dft_strict(n):
+    """The direct df64 DFT (n <= 256: one compensated rank-1 fori_loop),
+    compiled, at ~1e-12 against numpy complex128 — forward and inverse,
+    complex input, batch dims."""
+    rng = np.random.RandomState(n)
+    z = rng.randn(3, 2, n) + 1j * rng.randn(3, 2, n)
+    x4 = as_df64(z)
+    got = df64_to_numpy(jax.jit(lambda v: df64_fft_nd(v, [-1], "fft"))(x4))
+    ref = np.fft.fft(z, axis=-1)
+    assert np.abs(got - ref).max() / np.abs(ref).max() < 1e-12
+    inv = df64_to_numpy(df64_fft_nd(x4, [-1], "ifft"))
+    ref = np.fft.ifft(z, axis=-1)
+    assert np.abs(inv - ref).max() / np.abs(ref).max() < 1e-12
+
+
+@pytest.mark.parametrize("n,axes", [(512, [-1]), (768, [-1]),
+                                    (1024, [-1]), (320, [0])])
+def test_df64_composite_recursion_strict(n, axes):
+    """Sizes above the direct limit compose four-step from direct stages
+    with df64 twiddles (512 = 2*256, 768 = 3*256, 320 = 2*160 on a
+    leading axis), still at ~1e-12."""
+    rng = np.random.RandomState(n)
+    x = rng.randn(n, 4) if axes == [0] else rng.randn(4, n)
+    x = x.astype(np.float32)
+    got = df64_to_numpy(df64_fft_nd(x, axes, "fft"))
+    ref = np.fft.fft(x.astype(np.float64), axis=axes[0])
+    assert np.abs(got - ref).max() / np.abs(ref).max() < 1e-12
+
+
+def test_df64_prime_size_refused():
+    with pytest.raises(NotImplementedError, match="prime size 257"):
+        df64_fft_nd(np.zeros((2, 257), np.float32), [-1], "fft")
 
 
 @pytest.mark.parametrize("n", [64, 256, 1024])

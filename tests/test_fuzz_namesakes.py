@@ -1,4 +1,4 @@
-"""Property fuzz for the scipy-namesake families (VERDICT r4 item 5):
+"""Property fuzz for the scipy-namesake families:
 randomized shapes/params vs the scipy oracle, mirroring the transform
 core's test_fuzz_parity genre — czt spirals with random w/a, zoom_fft
 random bands, resample up/down with random windows, istft roundtrips

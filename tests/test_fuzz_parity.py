@@ -182,9 +182,9 @@ def test_fft_fuzz_vs_numpy_reference(case, mode):
                                 case["true_amplitude"])
 
     scale = max(np.abs(F).max(), 1e-12)
-    # hp on the CPU test backend: XLA:CPU FMA contraction degrades the
-    # df64 elementwise tails to ~1e-11 (the int8 DFT itself stays exact;
-    # strict bounds are pinned on-chip in scripts/chip_checks.py)
+    # hp on the CPU test backend: float64 tails at ~1e-11 here (the
+    # strict bounds are pinned in tests/test_hp_native.py and on the GPU
+    # by chip_smoke.py)
     atol = 2e-10 if case.get("engine") == "hp" else 5e-11
     npt.assert_allclose(got.values / scale, F / scale, atol=atol)
 

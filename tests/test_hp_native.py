@@ -1,17 +1,16 @@
 """Native-f64 engine='hp' pipelines (config.hp_impl='auto' on CPU/GPU).
 
-VERDICT round-3 item 3: the 1e-10 precision contract must be PORTABLE —
+The 1e-10 precision contract must be PORTABLE —
 the reference's accuracy pins (/root/reference/xrft/tests/test_xrft.py:
 693-842) hold on every backend the reference supports, so ours must too.
 On backends with real float64 the jit hp pipelines promote the quad
 planes to f64 and route the transform through the native complex128 XLA
 FFT (highprec._hp_fft_nd); the emulated path (pinned by
-tests/test_hp_pipeline.py under hp_impl('emulate')) stays the TPU route.
+tests/test_hp_pipeline.py under hp_impl('emulate')) is the x64-off route.
 
 These tests run under the default config on the CPU test backend (x64 on
 in conftest), i.e. they assert the contract a CPU/GPU user gets out of
-the box — at <=1e-12, far inside the 1e-10 bound the emulated path can
-only meet on-chip (ROADMAP #6 closed for users).
+the box — at <=1e-12, far inside the 1e-10 bound.
 """
 
 import numpy as np
@@ -47,7 +46,7 @@ def test_native_mode_is_default_on_cpu():
 
 
 def test_psd_hp_native_full_pipeline_1e12():
-    """The VERDICT done-criterion: full hp PSD pipeline (linear detrend +
+    """The done-criterion: full hp PSD pipeline (linear detrend +
     hann window + density scaling), jit-compiled, <=1e-12 vs the float64
     numpy oracle OFF-chip."""
     N, dx = 64, 0.5

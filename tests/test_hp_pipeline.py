@@ -2,10 +2,9 @@
 
 Semantics parity with float64 numpy oracles that replicate the reference's
 math (/root/reference/xrft/xrft.py, /root/reference/xrft/detrend.py).
-Tolerances here are for the CPU backend, where XLA's FMA contraction
-degrades the double-word arithmetic (see ops/df64.py); the strict 1e-10
-BASELINE bounds are pinned on-chip in scripts/chip_checks.py — though in
-practice the int8-limb engine holds ~1e-13 even here.
+The double-word primitives survive XLA:CPU's FMA contraction (see
+ops/df64.py), so the int8-limb engine holds ~1e-13 here; the strict 1e-10
+BASELINE bounds are also pinned on the GPU by chip_smoke.py.
 """
 
 import numpy as np
@@ -29,10 +28,10 @@ TOL = 1e-10
 
 @pytest.fixture(autouse=True)
 def _force_emulation():
-    """Pin the exact on-chip (int8-limb/df64) code path: with the default
+    """Pin the emulated (int8-limb/df64) code path: with the default
     config.hp_impl='auto' the hp pipelines route native-f64 on this CPU
     backend (tests/test_hp_native.py covers that mode) and these tests
-    would silently stop exercising the TPU path."""
+    would silently stop exercising the emulation."""
     with hp_impl("emulate"):
         yield
 

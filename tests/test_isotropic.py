@@ -1,6 +1,6 @@
 """Isotropic-spectrum tests: conservation, slope recovery, per-slice loop
 parity (port of /root/reference/xrft/tests/test_xrft.py:940-1110), exercised
-in both native-complex and split (TPU) representations.
+in both native-complex and split representations.
 """
 
 import numpy as np
@@ -168,10 +168,9 @@ def test_fit_loglog_exact():
 
 
 def test_binned_sum_large_grid_path():
-    """The large-grid (sorted prefix-difference) binning path matches the
-    one-hot matmul path exactly; it activates when points*bins exceeds
-    ONEHOT_MAX_ELEMENTS (2048^2-scale grids, where the dense one-hot
-    constant would be gigabytes)."""
+    """A large grid, summed as many scatter-add groups, matches the
+    one-group sum of the same points (the group size is monkeypatched
+    down so a 96^2 grid spans 72 groups); ComplexPairs too."""
     import jax.numpy as jnp
 
     from xrft_tpu.ops import binning, carray
@@ -181,83 +180,22 @@ def test_binned_sum_large_grid_path():
     freq_r = np.sqrt(k[:, None] ** 2 + k[None, :] ** 2)
     codes, nbins = binning.cut_codes(freq_r, 24)
     vals = rng.randn(3, 96 * 96).astype(np.float32)
+    pair = carray.ComplexPair(jnp.asarray(vals), jnp.asarray(vals[::-1]))
 
-    ref = binning.binned_sum(jnp.asarray(vals), codes, nbins)
-    old = binning.ONEHOT_MAX_ELEMENTS
-    binning.ONEHOT_MAX_ELEMENTS = 1  # force the large-grid path
+    old = binning.GROUP
+    binning.GROUP = codes.size  # one group
     try:
+        ref = binning.binned_sum(jnp.asarray(vals), codes, nbins)
+        rp = binning.binned_sum(pair, codes, nbins)
+        binning.GROUP = 128  # 72 groups
         got = binning.binned_sum(jnp.asarray(vals), codes, nbins)
-        # complex pair too
-        pair = carray.ComplexPair(jnp.asarray(vals), jnp.asarray(vals[::-1]))
         gp = binning.binned_sum(pair, codes, nbins)
     finally:
-        binning.ONEHOT_MAX_ELEMENTS = old
+        binning.GROUP = old
     npt.assert_allclose(np.asarray(got), np.asarray(ref), rtol=2e-6,
                         atol=1e-4)
-    rp = binning.binned_sum(carray.ComplexPair(jnp.asarray(vals),
-                                               jnp.asarray(vals[::-1])),
-                            codes, nbins)
     npt.assert_allclose(carray.to_numpy(gp), carray.to_numpy(rp), rtol=2e-6,
                         atol=1e-4)
-
-
-def test_binned_sum_pallas_kernel():
-    """The Pallas on-the-fly one-hot kernel (large grids on TPU; ~13x the
-    sorted-permutation path on the v5e — the 4M-point gather was the
-    entire cost) matches the one-hot matmul path, including dropped
-    (code -1) points, non-multiple-of-chunk point counts, unaligned bin
-    counts, batch dims, and ComplexPairs.  Runs in interpret mode on
-    CPU."""
-    import jax.numpy as jnp
-
-    from xrft_tpu.config import config
-    from xrft_tpu.ops import binning, carray
-
-    rng = np.random.RandomState(1)
-    P, nbins = 5000, 37
-    codes = rng.randint(-1, nbins, P)
-    vals = rng.randn(3, P).astype(np.float32)
-
-    ref = binning.binned_sum(jnp.asarray(vals), codes, nbins)
-    old = config.binned_sum_impl
-    config.binned_sum_impl = "pallas_interpret"
-    try:
-        got = binning.binned_sum(jnp.asarray(vals), codes, nbins)
-        pair = carray.ComplexPair(jnp.asarray(vals), jnp.asarray(vals[::-1]))
-        gp = binning.binned_sum(pair, codes, nbins)
-    finally:
-        config.binned_sum_impl = old
-    npt.assert_allclose(np.asarray(got), np.asarray(ref), rtol=2e-6,
-                        atol=1e-4)
-    rp = binning.binned_sum(carray.ComplexPair(jnp.asarray(vals),
-                                               jnp.asarray(vals[::-1])),
-                            codes, nbins)
-    npt.assert_allclose(carray.to_numpy(gp), carray.to_numpy(rp), rtol=2e-6,
-                        atol=1e-4)
-
-
-def test_isotropic_ps_pallas_binning_end_to_end():
-    """isotropic_power_spectrum through the Pallas binning kernel
-    (interpret mode) matches the default path."""
-    import xrft_tpu
-    from xrft_tpu.config import config
-
-    rng = np.random.RandomState(2)
-    N = 128
-    da = LabeledArray(rng.randn(N, N).astype(np.float32), dims=("y", "x"),
-                      coords={"y": np.arange(N) * 1.0,
-                              "x": np.arange(N) * 1.0})
-    ref = xrft_tpu.isotropic_power_spectrum(da, dim=["y", "x"],
-                                            truncate=True)
-    old = config.binned_sum_impl
-    config.binned_sum_impl = "pallas_interpret"
-    try:
-        got = xrft_tpu.isotropic_power_spectrum(da, dim=["y", "x"],
-                                                truncate=True)
-    finally:
-        config.binned_sum_impl = old
-    npt.assert_allclose(np.asarray(got.values), np.asarray(ref.values),
-                        rtol=2e-6, atol=1e-6)
 
 
 # ---------------------------------------------------------------------------

@@ -148,9 +148,8 @@ def test_xarray_compat_gated():
 
 def test_jit_over_host_complex128_split_mode():
     """A LabeledArray holding host-resident complex128 numpy data must be
-    jit-stageable on split-complex backends: tree_flatten emits an exact
-    df64 quad (CDF64) instead of a complex leaf (which the TPU cannot
-    execute, failing asynchronously).  The f32 engines degrade it to a
+    jit-stageable in split mode: tree_flatten emits an exact df64 quad
+    (CDF64) instead of a complex leaf.  The f32 engines degrade it to a
     pair; engine='hp' consumes it at full precision."""
     import jax
 
@@ -181,8 +180,8 @@ def test_jit_over_host_complex128_split_mode():
 @pytest.mark.parametrize("n", [8, 9])
 @pytest.mark.parametrize("kind", ["roll", "reverse", "general"])
 def test_sortby_permutation_fast_paths(n, kind):
-    """sortby's roll/reverse detection (gathers are ~60x off bandwidth
-    on the v5e) must agree with the general take path."""
+    """sortby's roll/reverse detection (slices instead of a gather) must
+    agree with the general take path."""
     import jax.numpy as jnp
 
     rng = np.random.RandomState(0)

@@ -1,8 +1,7 @@
-"""Oracle-parity tests for the MXU matmul FFT engine against numpy.fft.
+"""Oracle-parity tests for the matmul FFT engine against numpy.fft.
 
 These run the matmul engine on the CPU backend in both complex64 and
-complex128; the same traced program runs on TPU (where it is the only
-engine).  Mirrors the reference's oracle-parity genre
+complex128; chip_smoke.py runs it on the GPU.  Mirrors the reference's oracle-parity genre
 (/root/reference/xrft/tests/test_xrft.py:57-97 style), applied to the
 engine layer.
 """
@@ -82,6 +81,39 @@ def test_irfft_nonhermitian_matches_numpy(shape, axes):
     ref = np.fft.irfftn(X, axes=axes)
     scale = max(np.abs(ref).max(), 1e-30)
     npt.assert_allclose(got / scale, ref / scale, atol=1e-11)
+
+
+
+NONHERMITIAN_CASES = [((5, 16), [1]), ((4, 8, 12), [1, 2]), ((2, 6, 10), [2]),
+                      ((7, 2), [1]), ((1, 129), [1]),
+                      ((2, 3, 4, 6), [1, 2, 3]), ((6, 9, 5), [0, 1])]
+
+
+@pytest.mark.parametrize("dtype,atol", [(np.complex128, 1e-12),
+                                        (np.complex64, 2e-6)])
+@pytest.mark.parametrize("shape,axes", NONHERMITIAN_CASES)
+def test_xla_irfft_nonhermitian_matches_numpy(shape, axes, dtype, atol):
+    # the xla engine's irfft composes numpy's c2r (complex inverse FFTs
+    # over the leading axes, then a 1-D c2r reading only the real parts
+    # of the DC and Nyquist bins) for arbitrary input
+    rng = np.random.RandomState(sum(shape) + len(axes))
+    X = (rng.randn(*shape) + 1j * rng.randn(*shape)).astype(dtype)
+    got = np.asarray(fft_core.irfftn(np.asarray(X), axes, engine="xla"))
+    ref = np.fft.irfftn(X.astype(np.complex128), axes=axes)
+    scale = max(np.abs(ref).max(), 1e-30)
+    npt.assert_allclose(got / scale, ref / scale, atol=atol)
+
+
+def test_xla_irfft_ignores_edge_imaginary_parts():
+    # the 1-D c2r over the last axis reads only the real parts of its
+    # DC and Nyquist bins
+    rng = np.random.RandomState(3)
+    X = rng.randn(6, 8, 9) + 1j * rng.randn(6, 8, 9)
+    clean = X.copy()
+    clean[..., [0, -1]] = clean[..., [0, -1]].real
+    a = np.asarray(fft_core.xla_irfftn(X, [2]))
+    b = np.asarray(fft_core.xla_irfftn(clean, [2]))
+    npt.assert_array_equal(a, b)
 
 
 def test_fftn_2d_matches_numpy():

@@ -124,7 +124,7 @@ def test_error_contracts():
 
 
 def test_block_path_validates_before_device_work():
-    """ADVICE r4: the block path must reject a stale wrong-length kernel
+    """The block path must reject a stale wrong-length kernel
     coordinate and a bad mode string up front, exactly like _conv_like —
     not silently mis-grid the output (coord) or raise only after the
     transforms (mode)."""

@@ -1,6 +1,6 @@
 """Distributed-path tests on the 8-virtual-device CPU mesh: pencil FFT
 parity vs single-device transforms, batch sharding, and the high-level
-sharded API.  This is the TPU analogue of the reference's in-process dask
+sharded API.  This is the analogue of the reference's in-process dask
 tests (SURVEY.md §4): same assertions, collective execution underneath.
 """
 
@@ -156,7 +156,7 @@ def test_shard_labeled_sharding_visible(mesh8):
 def test_forward_chain_halves_collectives(mesh24):
     """The forward pencil chain issues ONE all_to_all per sharded
     transform axis (round-1 scheme: two) — pinned on the jaxpr
-    (VERDICT round-1 item 6)."""
+   ."""
     rng = np.random.RandomState(7)
     x = np.asarray(rng.randn(8, 16, 32), np.float32)
 
@@ -210,7 +210,7 @@ def test_pencil_overlap_chunks(mesh8):
 
 def test_sharded_one_sided_psd(mesh24):
     """Real-input sharded PSD runs the one-sided rfft + local-mirror fast
-    path (VERDICT round-1 item 7): parity vs the local pipeline and an
+    path: parity vs the local pipeline and an
     rfft (not full fft) in the jaxpr."""
     N = 32
     rng = np.random.RandomState(9)
@@ -331,8 +331,8 @@ def test_sharded_welch_and_csd_match_local(mesh8):
 
 def test_sharded_isotropic_3d_shells(mesh24):
     """3-D spherical-shell isotropize (beyond the reference) under a
-    sharded transform dim: the flattened 3-axis one-hot aggregation
-    contracts across GSPMD-sharded spectral dims."""
+    sharded transform dim: the flattened 3-axis scatter-add aggregation
+    runs across GSPMD-sharded spectral dims."""
     import warnings
 
     from xrft_tpu.parallel import sharded_isotropic_power_spectrum
@@ -359,7 +359,7 @@ def test_sharded_isotropic_3d_shells(mesh24):
 
 @pytest.mark.parametrize("kind", ["fft", "ifft", "rfft", "irfft"])
 def test_pencil_with_stacked_engine(mesh8, kind):
-    """The stacked matmul engine (the TPU production path) inside
+    """The stacked matmul engine inside
     shard_map: pencil local transforms forced through engine='matmul'."""
     from xrft_tpu.config import fft_engine
 
@@ -408,7 +408,7 @@ def test_pencil_hp(mesh8, kind):
 
 
 def test_sharded_segmented_power_spectrum(mesh8):
-    """chunks_to_segments composes with sharding (VERDICT r2 item 5): the
+    """chunks_to_segments composes with sharding: the
     chunked transform dim's shard spec moves to the segment axis (batch
     parallelism), and the result equals the local segmented estimate
     (reference segment semantics /root/reference/xrft/xrft.py:106-136)."""
@@ -499,7 +499,7 @@ def test_sharded_segmented_cross_spectrum(mesh8):
 
 
 # ---------------------------------------------------------------------------
-# Topology-aware planning (VERDICT r2 item 6; SURVEY §7 stage 6)
+# Topology-aware planning (SURVEY §7 stage 6)
 # ---------------------------------------------------------------------------
 
 
@@ -520,27 +520,30 @@ def test_make_mesh_axis_links_and_order():
 
 
 def test_axis_links_warns_on_unhinted_multislice_mesh(monkeypatch):
-    """A mesh spanning >1 slice_index granule with NO link registration
-    warns (once) that pencil plans will assume all-ICI; hinted meshes and
-    single-slice meshes stay silent (VERDICT r3 item 6)."""
+    """A mesh spanning >1 process (host) with NO link registration warns
+    (once) that pencil plans will assume all-ICI; hinted meshes and
+    single-process meshes stay silent."""
     import warnings
 
     from xrft_tpu.parallel import axis_links, make_mesh
     from xrft_tpu.parallel import mesh as mesh_mod
 
     class _Dev:
-        def __init__(self, slice_index):
-            self.slice_index = slice_index
+        def __init__(self, process_index):
+            self.process_index = process_index
 
     # granule detection itself, on a stubbed device list
     assert mesh_mod._granules([_Dev(0), _Dev(0), _Dev(1)]) == {0, 1}
     assert mesh_mod._granules([_Dev(None), object()]) == set()
+    # the CPU test devices all live in this one process
+    assert mesh_mod._granules(jax.devices()) == {0}
 
-    # an unregistered mesh that "spans two slices" (stubbed: the CPU test
-    # devices expose no slice_index, so patch the detector)
+    # an unregistered mesh that "spans two hosts" (stubbed: the CPU test
+    # devices share one process, so patch the detector)
     m = jax.make_mesh((8,), ("p",))
     mesh_mod._MESH_LINKS.pop(m, None)  # make_mesh interning may have hit it
     mesh_mod._WARNED_UNHINTED.discard(m)
+    real_granules = mesh_mod._granules
     monkeypatch.setattr(mesh_mod, "_granules", lambda devs: {0, 1})
     with pytest.warns(RuntimeWarning, match="assume every axis is ICI"):
         assert axis_links(m) == {"p": "ici"}
@@ -549,14 +552,17 @@ def test_axis_links_warns_on_unhinted_multislice_mesh(monkeypatch):
         warnings.simplefilter("error")
         assert axis_links(m) == {"p": "ici"}
 
-    # a hinted mesh never warns, even multi-slice
+    # a hinted mesh never warns, even across hosts (built on the real
+    # single-process devices, read back under the stubbed detector)
+    monkeypatch.setattr(mesh_mod, "_granules", real_granules)
     m2 = make_mesh({"fp": (4, "ici"), "dp": (2, "dcn")})
+    monkeypatch.setattr(mesh_mod, "_granules", lambda devs: {0, 1})
     with warnings.catch_warnings():
         warnings.simplefilter("error")
         assert axis_links(m2) == {"dp": "dcn", "fp": "ici"}
 
     # a make_mesh call WITHOUT hints must not register links (that would
-    # suppress this warning for a later unhinted multi-slice handle)
+    # suppress this warning for a later unhinted multi-host handle)
     m3 = make_mesh({"p": 8})
     assert mesh_mod._MESH_LINKS.get(m3) is None or m3 is m2
 
@@ -565,9 +571,61 @@ def test_axis_links_warns_on_unhinted_multislice_mesh(monkeypatch):
     mesh_mod._WARNED_UNHINTED.discard(m)
 
 
+class _StubGpu:
+    """Stand-in for a GPU device of a multi-host job."""
+
+    platform = "gpu"
+    device_kind = "NVIDIA H100 80GB HBM3"
+
+    def __init__(self, id, process_index):
+        self.id = id
+        self.process_index = process_index
+
+    def __repr__(self):
+        return f"gpu{self.id}@p{self.process_index}"
+
+
+@pytest.mark.parametrize("order,sizes,links,expect", [
+    # DCN axis outermost: one row per host, ICI axis inside a host
+    (["dp", "fp"], {"dp": 2, "fp": 4}, {"dp": "dcn", "fp": "ici"},
+     [[0, 1, 2, 3], [4, 5, 6, 7]]),
+    # two ICI axes inside each host: (dp, a, b) = (2, 2, 2)
+    (["dp", "a", "b"], {"dp": 2, "a": 2, "b": 2},
+     {"dp": "dcn", "a": "ici", "b": "ici"},
+     [[[0, 1], [2, 3]], [[4, 5], [6, 7]]]),
+])
+def test_hybrid_device_grid_process_granules(order, sizes, links, expect):
+    """Hybrid meshes group devices by process: every ICI group stays
+    inside one host (one process), the DCN axis steps across hosts."""
+    from xrft_tpu.parallel import mesh as mesh_mod
+
+    # devices listed host-interleaved, to show grouping is by process
+    devs = [_StubGpu(i, i // 4) for i in (0, 4, 1, 5, 2, 6, 3, 7)]
+    grid = mesh_mod._hybrid_device_grid(order, sizes, links, devs)
+    ids = np.vectorize(lambda d: d.id)(grid)
+    npt.assert_array_equal(ids, np.array(expect))
+    procs = np.vectorize(lambda d: d.process_index)(grid)
+    assert [set(procs[i].ravel()) for i in range(2)] == [{0}, {1}]
+
+
+def test_hybrid_mesh_single_process_is_plain(monkeypatch):
+    """On one process (one host, as on a four-card NVLink machine) a
+    DCN-hinted mesh is a plain mesh in DCN-outermost axis order; the
+    hybrid grid is never consulted."""
+    from xrft_tpu.parallel import mesh as mesh_mod
+
+    def _boom(*a, **k):
+        raise AssertionError("hybrid grid used on one process")
+
+    monkeypatch.setattr(mesh_mod, "_hybrid_device_grid", _boom)
+    m = mesh_mod._hybrid_mesh(["dp", "fp"], {"dp": 2, "fp": 4},
+                              {"dp": "dcn", "fp": "ici"})
+    assert dict(m.shape) == {"dp": 2, "fp": 4}
+
+
 def test_plan_dcn_axes_ordered_last():
     """A chain mixing ICI- and DCN-sharded transform axes transforms the
-    DCN axis last, so its single inter-slice all_to_all can park on an
+    DCN axis last, so its single inter-host all_to_all can park on an
     already-transformed (settled) axis."""
     from xrft_tpu.parallel.pencil import plan_forward_layout
 
@@ -648,7 +706,7 @@ def test_sharded_psd_dcn_mesh(mesh24):
 
 
 # ---------------------------------------------------------------------------
-# Generic sharded() wrapper (VERDICT r4 item 4): every public estimator
+# Generic sharded() wrapper: every public estimator
 # either runs under dim_shards (batch dims) or rejects with a
 # prescriptive error.
 # ---------------------------------------------------------------------------
@@ -829,7 +887,7 @@ def test_sharded_istft_roundtrip(mesh8):
 
 
 # ---------------------------------------------------------------------------
-# Pencil-planner property fuzz (VERDICT r4 item 3): randomized
+# Pencil-planner property fuzz: randomized
 # shape x mesh factorization (incl. the non-power-of-two 6 = 2x3)
 # x transform-axis subset x sharding placement x kind, vs the local
 # numpy oracle.  Catches planner interaction bugs (buddy selection,

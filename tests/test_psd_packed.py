@@ -20,7 +20,8 @@ from xrft_tpu.ops import psd_packed
 
 @pytest.fixture(autouse=True)
 def _enable_packed():
-    # the route is a measured net loss on the v5e and default-disabled
+    # the route measured a net loss where it was built, and is
+    # default-disabled
     # (config.psd_packed docstring); these tests pin its correctness as
     # an opt-in
     old = config.psd_packed

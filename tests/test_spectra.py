@@ -574,8 +574,8 @@ def test_segmented_real_dim_nyquist_parity():
 
 @pytest.mark.parametrize("mode", MODES)
 def test_segmented_psd_fused_engine_parity(mode):
-    """chunks_to_segments through the fused matmul engine (the route TPU
-    takes) matches the xla engine, including interleaved *_segment batch
+    """chunks_to_segments through the fused matmul engine matches the xla
+    engine, including interleaved *_segment batch
     dims and cross spectra."""
     from xrft_tpu.config import fft_engine
 

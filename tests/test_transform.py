@@ -1,7 +1,6 @@
 """Transform-layer tests: ports of the reference's oracle-parity and
 invariant genres (/root/reference/xrft/tests/test_xrft.py:57-270,1114-1341)
-against numpy oracles, plus split-complex (TPU-representation) runs of the
-same checks.
+against numpy oracles, plus split-complex runs of the same checks.
 """
 
 import numpy as np
@@ -346,7 +345,7 @@ def test_ifft_real_dim(mode):
 
 
 def test_matmul_engine_full_pipeline():
-    """The TPU engine (matmul+split) produces the same transform as the XLA
+    """The matmul engine (split pairs) produces the same transform as the XLA
     engine through the full public API."""
     N = 48
     x = np.arange(N) * 0.1

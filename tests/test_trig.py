@@ -40,7 +40,7 @@ def test_dct_dst_scipy_parity(type, norm, n):
 @pytest.mark.parametrize("mode", ["native", "split"])
 @pytest.mark.parametrize("engine", ["xla", "matmul"])
 def test_dct_engines_and_modes(mode, engine):
-    """The TPU code path (split pairs + matmul engine) produces the same
+    """The split-pair + matmul-engine code path produces the same
     transform as the native path."""
     x, da = make_1d(33, seed=3)
     with complex_mode(mode), fft_engine(engine):

@@ -1,5 +1,5 @@
 """Walkthrough 04 (the MITgcm-notebook analogue) end to end with REAL
-xarray DataArray I/O (VERDICT r3 item 8: the de-facto acceptance test of
+xarray DataArray I/O (the de-facto acceptance test of
 the reference is its MITgcm notebook, /root/reference/doc/
 MITgcm_example.ipynb; the CI real-deps leg must run one full walkthrough
 against the real library, not just the boundary/cftime tests).

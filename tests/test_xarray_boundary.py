@@ -1,6 +1,6 @@
-"""xarray at the API boundary (VERDICT round-1 item 4).
+"""xarray at the API boundary.
 
-The TPU image ships without xarray, so these tests exercise the boundary
+xarray is not a dependency, so these tests exercise the boundary
 through a minimal in-test stub that implements the DataArray surface the
 converters consume (dims/coords/attrs/values/name +
 register_dataarray_accessor) — validating the same code paths real xarray

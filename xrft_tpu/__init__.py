@@ -1,11 +1,11 @@
-"""xrft_tpu: TPU-native spectral analysis in JAX.
+"""xrft_tpu: spectral analysis in JAX.
 
-A ground-up rebuild of the capabilities of xrft (xgcm/xrft) designed for
-TPU hardware: jit-compiled N-D real/complex Fourier transforms with
+A ground-up rebuild of the capabilities of xrft (xgcm/xrft) for
+accelerators: jit-compiled N-D real/complex Fourier transforms with
 physically-correct phase and amplitude coordinate handling, detrending,
 windowing, padding, and spectral estimators — executed as fused XLA
-programs, with an MXU matmul-FFT engine where the FFT HLO is unavailable,
-and `jax.sharding` pencil decomposition in place of dask chunking.
+programs (cuFFT on an NVIDIA GPU), with `jax.sharding` pencil
+decomposition in place of dask chunking.
 """
 
 from .config import complex_mode, config, fft_engine, set_fft_engine  # noqa: F401

@@ -8,11 +8,10 @@ stops at forward spectral estimates, ``/root/reference/xrft/xrft.py:17-29``)
     h = [1, 2, ..., 2, 1, 0, ..., 0]   (even N; the lone 1 at Nyquist)
         [1, 2, ..., 2,    0, ..., 0]   (odd N)
 
-TPU-first shape: the one-sided doubling mask ``h`` is a host constant
-baked into the jaxpr, the transform pair rides the engine dispatch in
-:mod:`.ops.fft_core` (split-complex MXU matmul FFT on TPU, native c64/
-c128 XLA FFT on CPU/GPU), and the whole analytic signal is one XLA
-program.  No frequency coordinates are ever built: the Hilbert
+Shape: the one-sided doubling mask ``h`` is a host constant baked into
+the jaxpr, the transform pair rides the engine dispatch in
+:mod:`.ops.fft_core` (native c64/c128 XLA FFT by default), and the whole
+analytic signal is one XLA program.  No frequency coordinates are ever built: the Hilbert
 transformer is index-based (like scipy's), so the input's dims/coords
 pass through untouched and no spacing validation applies.
 """
@@ -42,7 +41,7 @@ def _analytic_mask(n: int) -> np.ndarray:
 def hilbert(da, dim=None, engine=None) -> LabeledArray:
     """Analytic signal ``x + i*H(x)`` along ``dim`` (default: last dim) —
     ``scipy.signal.hilbert``.  Input must be real (float or integer),
-    like scipy's; the output is complex (a split ``ComplexPair`` on TPU)
+    like scipy's; the output is complex (a split ``ComplexPair`` under ``complex_mode("split")``)
     with the input's dims/coords/attrs unchanged.  The imaginary part is
     the Hilbert transform; :func:`envelope` is its magnitude.  Unlike
     scipy there is no ``N=``: zero-pad explicitly with
@@ -73,7 +72,7 @@ def hilbert2(da, dim=None, engine=None) -> LabeledArray:
     ``ifft2(fft2(x) * (h1 ⊗ h2))`` with the same one-sided doubling mask
     on each axis, so only the (+,+) frequency quadrant survives (doubled
     four-fold in the interior).  ``dim`` defaults to the last two dims.
-    Input must be real; output is complex (a split pair on TPU) with
+    Input must be real; output is complex (a split pair in split mode) with
     dims/coords/attrs unchanged (index-based, like scipy's).
     """
     if dim is None:

@@ -7,11 +7,11 @@ semantics: linear convolution by the convolution theorem with ``full``/
 ``same``/``valid`` output cropping, real-in/real-out, and correlation as
 convolution with the conjugate-reversed second operand.
 
-TPU-first shape: both operands are zero-padded to the next power of two
+Shape: both operands are zero-padded to the next power of two
 >= ``n1 + n2 - 1`` per dim (the engine's fastest plan), transformed with
 ONE multi-axis engine fft each, multiplied, and inverse-transformed —
 three engine transforms total regardless of ndim, all static shapes,
-jit-traceable end to end, split complex on TPU.  The crop offsets are
+jit-traceable end to end.  The crop offsets are
 host constants.
 
 Coordinate-aware beyond scipy: when both operands carry valid equispaced
@@ -192,9 +192,8 @@ def oaconvolve(da, db, dims=None, mode="full", engine=None) -> LabeledArray:
     block is transformed at the small size ``nfft`` instead of the full
     next-pow2 of ``n1+n2-1`` — O(n1 log n2) work and O(n1) memory.
 
-    TPU-first shape: the blocks become a leading batch axis for the
-    stacked engine FFT (one batched MXU matmul instead of a giant
-    transform), the kernel's FFT is computed once and broadcast, and the
+    Shape: the blocks become a leading batch axis for one batched engine
+    FFT (instead of a giant transform), the kernel's FFT is computed once and broadcast, and the
     overlap-add is two static slices + one add (block ``k``'s tail lands
     exactly in block ``k+1``'s head because ``step >= n2-1`` by
     construction) — no scatter, no dynamic shapes, jit-traceable.
@@ -310,7 +309,7 @@ def correlate(da, db, dims=None, mode="full", engine=None,
     """N-D cross-correlation ``sum da[t+k] * conj(db[t])`` along ``dims``
     — ``scipy.signal.correlate``: convolution with the conjugate-reversed
     second operand.  ``method`` is scipy's: ``'fft'`` (default here, the
-    historical behavior), ``'direct'`` (one MXU ``conv_general_dilated``
+    historical behavior), ``'direct'`` (one ``conv_general_dilated``
     — no padded transforms; see :func:`convolve`), or ``'auto'``
     (:func:`choose_conv_method`).  With matching-spacing coordinates the
     output carries the physical lag grid ``x0 - y0 + (k-(n2-1))*dx``
@@ -322,13 +321,12 @@ def correlate(da, db, dims=None, mode="full", engine=None,
 
 
 # ---------------------------------------------------------------------------
-# Direct (MXU) method — scipy.signal.convolve/correlate(method='direct'),
-# computed as ONE lax.conv_general_dilated instead of three padded
-# engine transforms.  TPU-first: a small kernel over a large field is
-# exactly the MXU's native operation (the systolic array contracts the
-# kernel window at full rate); the FFT route must pad both operands to
-# the next power of two >= n1+n2-1 per dim (4x the field area in 2-D)
-# and stream three full transforms through HBM.  scipy analogue:
+# Direct method — scipy.signal.convolve/correlate(method='direct'),
+# computed as ONE lax.conv_general_dilated (cuDNN on a GPU) instead of
+# three padded engine transforms.  A small kernel over a large field is a
+# dense contraction of the kernel window; the FFT route must pad both
+# operands to the next power of two >= n1+n2-1 per dim (4x the field area
+# in 2-D) and stream three full transforms through device memory.  scipy analogue:
 # _signaltools.convolve's method dispatch.
 # ---------------------------------------------------------------------------
 
@@ -444,13 +442,13 @@ def _method_dispatch(da, db, dims, mode, engine, method, caller, reverse):
 def choose_conv_method(da, db, dims=None, mode="full",
                        measure=False) -> str:
     """Pick ``'direct'`` or ``'fft'`` for :func:`convolve` /
-    :func:`correlate` — ``scipy.signal.choose_conv_method``, with a
-    TPU-first cost model instead of scipy's CPU constants: the direct
-    method's MXU work is ``prod(n_out) * prod(n2)`` MACs at systolic
-    rate, the fft method streams three padded transforms through HBM, so
-    small kernels over large fields favor direct (the crossover,
-    ``config.direct_conv_max`` kernel elements, is measured on-chip —
-    scripts/perf_conv_direct.py).  ``measure=True`` times both compiled
+    :func:`correlate` — ``scipy.signal.choose_conv_method``, with an
+    accelerator cost model instead of scipy's CPU constants: the direct
+    method's work is ``prod(n_out) * prod(n2)`` MACs of one dense
+    contraction, the fft method streams three padded transforms through
+    device memory, so small kernels over large fields favor direct up to
+    ``config.direct_conv_max`` kernel elements (chip_smoke.py prints
+    both routes' times at 4096^2 with a 63^2 kernel).  ``measure=True`` times both compiled
     methods on the actual operands and returns the faster (like scipy).
     """
     from .config import config
@@ -489,9 +487,9 @@ def convolve(da, db, dims=None, mode="full", method="auto",
     """N-D linear convolution along named dims with method dispatch —
     ``scipy.signal.convolve``: ``method='fft'`` routes to
     :func:`fftconvolve`; ``method='direct'`` computes the mode-cropped
-    sum directly as ONE MXU ``lax.conv_general_dilated`` (no padded
-    transforms — the systolic array's native operation; a 63x63 kernel
-    over a 4096^2 field pays 3 transforms of 8192^2 on the fft route);
+    sum directly as ONE ``lax.conv_general_dilated`` (no padded
+    transforms; a 63x63 kernel over a 4096^2 field pays 3 transforms of
+    8192^2 on the fft route);
     ``method='auto'`` picks via :func:`choose_conv_method`.  Modes,
     kernel broadcasting over batch dims (fft method; direct requires a
     transform-dims-only kernel and raises otherwise), real/complex

@@ -8,7 +8,7 @@ of the z-transform along the spiral ``z_k = a * w^{-k}``; ``zoom_fft``
 restricts to a unit-circle frequency band ``[f1, f2]`` without computing
 the full spectrum.
 
-TPU-first shape: Bluestein's identity ``nk = (n^2 + k^2 - (k-n)^2) / 2``
+Shape: Bluestein's identity ``nk = (n^2 + k^2 - (k-n)^2) / 2``
 turns the evaluation into one circular convolution —
 
     X = c3 * ifft(fft(x * c1, L) * V)[:m]
@@ -19,8 +19,7 @@ where the input chirp ``c1[n] = a^{-n} w^{n^2/2}``, the output chirp
 jaxpr (the kernel's FFT costs nothing at run time), ``L`` is the next
 power of two ≥ ``n + m - 1`` so the one device FFT pair rides the engine
 dispatch at its fastest plan.  The whole transform is two engine FFTs +
-three elementwise complex multiplies, jit-traceable end to end, split
-complex on TPU.
+three elementwise complex multiplies, jit-traceable end to end.
 
 ``zoom_fft`` is coordinate-aware beyond scipy: the sampling rate defaults
 to ``1/spacing`` of the dim's coordinate (scipy's ``fs=2`` applies only
@@ -91,8 +90,8 @@ def _czt_data(x, ax, n, m, w: complex, a: complex, engine):
     # c3 <- c3*(s1*sV).  Off-circle spirals make |V| (and |c1| for
     # |a| > 1) huge while the matching ifft outputs are tiny; without
     # balancing, the on-device product fft(x*c1) * V overflows float32
-    # ON CHIP even when every host constant is representable (measured
-    # ~1.2e39 for |w| = 1 - 1e-5, n = 4096).  With max|c1| = max|V| = 1
+    # even when every host constant is representable (~1.2e39 for
+    # |w| = 1 - 1e-5, n = 4096).  With max|c1| = max|V| = 1
     # the intermediates are bounded by the signal's own FFT.
     s1 = float(np.abs(c1).max())          # >= 1 is not guaranteed, > 0 is
     sV = float(np.abs(V).max())
@@ -138,7 +137,7 @@ def czt(da, dim=None, m=None, w=None, a=1 + 0j, engine=None) -> LabeledArray:
     ``scipy.signal.czt``: ``m`` samples of the z-transform on the spiral
     ``z_k = a * w^{-k}``; ``w`` defaults to ``exp(-2j*pi/m)`` (the DFT
     circle, so ``czt(x)`` == ``fft(x)`` values).  Real or complex input;
-    complex output (a split pair on TPU).  The transformed dim keeps its
+    complex output (a split pair in split mode).  The transformed dim keeps its
     name with an integer sample index as its coordinate (the z-plane
     samples are not a frequency grid in general); other dims/coords pass
     through.

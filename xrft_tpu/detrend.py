@@ -15,7 +15,7 @@ decouples into the grid mean plus one independent slope per axis:
 
 This closed form is exactly the least-squares solution the reference
 computes (identical result, no solver), and it compiles to a handful of
-reductions + one fused multiply-add per axis — ideal for the VPU, and
+reductions + one fused multiply-add per axis — one fused XLA pass, and
 batched over non-transform dims for free.  Any number of dims is supported
 (the reference stops at 3).
 """

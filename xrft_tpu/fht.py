@@ -8,13 +8,13 @@ Hankel/Bessel transform) — matching ``scipy.fft.fht`` / ``scipy.fft.ifht``
 sequence via the FFTLog algorithm (Talman 1978; Hamilton 2000,
 MNRAS 312, 257), with power-law bias and the low-ringing offset helper.
 
-TPU-first shape: the FFTLog kernel ``u_m = (k_c r_c)^{-2πim/(n dln)}
+Shape: the FFTLog kernel ``u_m = (k_c r_c)^{-2πim/(n dln)}
 U_mu(q + 2πim/(n dln))`` with ``U_mu(x) = 2^x Γ((mu+1+x)/2)/Γ((mu+1-x)/2)``
 is evaluated on host in complex128 (``scipy.special.loggamma``), as are
 the bias pre/post factors — all baked into the jaxpr as constants, with
 the inverse's division folded into a host reciprocal so the device never
 divides complex numbers.  The device work is ONE engine rfft/irfft pair
-(split-complex MXU matmul FFT on TPU) around an elementwise complex
+around an elementwise complex
 multiply, plus a flip — jit-traceable end to end, batched over all other
 dims.
 

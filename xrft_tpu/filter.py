@@ -10,22 +10,21 @@ scipy.signal semantics:
   in the jaxpr as constants exactly like the spectral windows in
   :mod:`.ops.window`.
 * :func:`upfirdn` — upsample (zero-stuff), FIR filter, downsample.  The
-  TPU-first shape is *static-stride surgery around one convolution*: the
+  shape is *static-stride surgery around one convolution*: the
   zero-stuffing is a reshape + zero-pad on an inserted axis (no scatter),
   the filter is an engine-routed FFT convolution
-  (:func:`.convolve._fft_convolve`, split-complex MXU matmul FFT on TPU),
-  and the downsampling is a static strided slice — one XLA program, fully
-  jit-traceable.  scipy iterates a compiled C polyphase loop per output
-  sample; on TPU the dense formulation wins because the FFT rides the MXU
-  and XLA fuses the stuffing/slicing into neighbors.
+  (:func:`.convolve._fft_convolve`), and the downsampling is a static
+  strided slice — one XLA program, fully jit-traceable.  scipy iterates a
+  compiled C polyphase loop per output sample; here the dense formulation
+  lets XLA fuse the stuffing/slicing into neighbors.
 * :func:`resample_poly` — gcd reduction, kaiser-designed lowpass,
   centered-delay trimming, exactly scipy's bookkeeping (all host/static).
 * :func:`decimate` — FIR decimation via :func:`resample_poly` (zero-phase)
   or causal :func:`upfirdn`.  **Deviation**: ``ftype`` defaults to
   ``"fir"`` and ``"iir"`` raises — scipy's default 8th-order Chebyshev
   ``sosfiltfilt`` is a sequential recursion along the dim, which is
-  hostile to XLA/TPU (a length-n ``lax.scan`` of scalar work); the FIR
-  path is the TPU-native decimator and matches
+  hostile to XLA (a length-n ``lax.scan`` of scalar work); the FIR
+  path is the data-parallel decimator and matches
   ``scipy.signal.decimate(..., ftype='fir')`` exactly.
 
 Coordinate-aware beyond scipy: when the resampled dim carries an evenly
@@ -346,7 +345,7 @@ def decimate(da, q, n=None, ftype="fir", dim=None, zero_phase=True,
     **Deviation from scipy**: ``ftype`` defaults to ``'fir'`` and
     ``'iir'`` raises — scipy's default Chebyshev ``sosfiltfilt`` is a
     sequential recursion along the dim (a length-n scan of scalar work),
-    hostile to XLA/TPU; the linear-phase FIR path is the TPU-native
+    hostile to XLA; the linear-phase FIR path is the data-parallel
     decimator.  The dim's coordinate, if any, is rebuilt with spacing
     ``dx * q`` from the same origin.
     """
@@ -446,7 +445,7 @@ def savgol_filter(da, window_length, polyorder, deriv=0, delta=1.0,
     the host-static least-squares taps; ``mode`` in {'interp' (scipy
     default: the ``window_length // 2`` edge samples are replaced by a
     polynomial fitted to the first/last ``window_length`` samples —
-    here a static edge-fit *matrix* applied on the MXU, since polyfit o
+    here a static edge-fit *matrix* applied as one dot, since polyfit o
     polyval is linear in the data), 'mirror', 'nearest', 'constant',
     'wrap'}.  Same-length output; index-based, so dims/coords pass
     through untouched (``delta`` carries the sample spacing, like

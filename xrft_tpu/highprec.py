@@ -1,10 +1,11 @@
-"""High-precision (emulated float64) transforms on TPU.
+"""High-precision (float64-grade) transforms.
 
-Public wrappers over the df64 engine (:mod:`.ops.df64_fft`): the transform
-runs on the TPU in double-word float32 arithmetic (~2e-14 relative accuracy
-— validated on-chip; see tests/test_df64_fft.py and docs/precision.md) and
-the result returns as host complex128.  This meets the 1e-10 numpy-parity
-contract (BASELINE.md) on hardware with no native float64/complex support.
+``fft64``/``ifft64`` return host complex128: on the supported backends the
+transform is the float64 FFT; under ``config.hp_impl="emulate"`` it runs
+in double-word float32 arithmetic (int8-limb DFT, :mod:`.ops.df64_fft`
+fallback; ~1e-12 relative accuracy, see tests/test_df64_fft.py and
+docs/precision.md).  Either way this meets the 1e-10 numpy-parity contract
+(BASELINE.md).
 
 These functions execute eagerly (the result is materialized to host) and
 support the coordinate-aware phase/amplitude semantics of
@@ -21,6 +22,7 @@ from . import coords as ce
 from .labeled import Coord, LabeledArray
 from .ops import df64
 from .ops.df64_fft import as_df64, df64_fft_nd, df64_to_numpy
+from .ops.fft_core import xla_irfftn
 from .transform import _dim_coord, _norm_dim
 
 __all__ = ["fft64", "ifft64"]
@@ -71,9 +73,9 @@ def fft64(
         z = df64_to_numpy(x4)
         f = np.fft.fftn(z, axes=axis_num)
     else:
-        # int8-limb MXU engine (exact integer matmuls, ~1e-13 on-chip,
-        # much faster than the VPU df64 kernel); VPU fallback for sizes
-        # the limb scheme cannot factor
+        # int8-limb engine (exact integer matmuls, ~1e-13, much faster
+        # than the df64 DFT); df64 fallback for sizes the limb scheme
+        # cannot factor
         try:
             from .ops.int8_dft import int8_fft_nd
 
@@ -207,15 +209,16 @@ def ifft64(
 
 
 # ---------------------------------------------------------------------------
-# Round 2: jit-traceable high-precision pipeline (engine="hp")
+# jit-traceable high-precision pipeline (engine="hp")
 #
 # Unlike fft64/ifft64 above (eager, host-c128 results), these run fully on
-# device over the int8-limb MXU DFT (ops/int8_dft.int8_fft_nd) with df64
-# elementwise/reduction stages (ops/hp.py), and return LabeledArrays whose
-# data is carray.CDF64 / carray.DF64 (values -> complex128/float64 on
-# host).  This is what makes the 1e-10 BASELINE contract hold for
-# jit-compiled, windowed/detrended pipelines on the TPU (VERDICT round-1
-# item 3); pinned on-chip in scripts/chip_checks.py.
+# device — native float64 planes and the c128 XLA FFT under x64, else the
+# int8-limb DFT (ops/int8_dft.int8_fft_nd) with df64 elementwise/reduction
+# stages (ops/hp.py) — and return LabeledArrays whose data is
+# carray.CDF64 / carray.DF64 (values -> complex128/float64 on host).  This
+# is what makes the 1e-10 BASELINE contract hold for jit-compiled,
+# windowed/detrended pipelines; pinned in scripts/chip_checks.py and
+# chip_smoke.py on the GPU.
 # ---------------------------------------------------------------------------
 
 
@@ -490,39 +493,31 @@ def ifft_hp(
 
 
 def _hp_native(require_x64: bool = True) -> bool:
-    """Should the hp path run native float64 (vs the TPU emulation)?
+    """Should the hp path run native float64 (vs the int8/df64 emulation)?
 
-    "auto" (default): native on backends with real f64 (cpu/gpu) — for the
-    jit pipelines additionally requiring jax_enable_x64 (without x64 the
-    f64 promotion would silently truncate).  config.hp_impl overrides in
-    both directions ("emulate" keeps the exact TPU code path CPU-testable).
+    "auto" (default): native on the supported backends (cpu/gpu; any
+    other raises, see :func:`.config.check_backend`) — for the jit
+    pipelines additionally requiring jax_enable_x64 (without x64 the f64
+    promotion would silently truncate).  config.hp_impl overrides in both
+    directions ("emulate" keeps the emulation CPU-testable).
     """
-    from .config import config
+    from .config import check_backend, config
 
     if config.hp_impl == "emulate":
         return False
-    has_f64_backend = jax.default_backend() in ("cpu", "gpu", "cuda",
-                                                "rocm")
+    check_backend()
+    x64 = bool(jax.config.jax_enable_x64)
     if config.hp_impl == "native":
-        # forcing native without usable f64 would SILENTLY truncate the
-        # promoted planes to f32 (x64 off) or emit complex programs a
-        # TPU cannot execute (failing asynchronously) — refuse instead
-        if not has_f64_backend:
-            raise ValueError(
-                "config.hp_impl='native' requires a backend with real "
-                f"float64 (cpu/gpu); got {jax.default_backend()!r}"
-            )
-        if require_x64 and not bool(jax.config.jax_enable_x64):
+        # forcing native without x64 would SILENTLY truncate the promoted
+        # planes to f32 — refuse instead
+        if require_x64 and not x64:
             raise ValueError(
                 "config.hp_impl='native' requires jax_enable_x64 for "
                 "the jit hp pipelines (without it the f64 promotion "
                 "silently truncates to f32)"
             )
         return True
-    ok = has_f64_backend
-    if require_x64:
-        ok = ok and bool(jax.config.jax_enable_x64)
-    return ok
+    return x64 or not require_x64
 
 
 def _promote_quad(x4):
@@ -543,7 +538,7 @@ def _promote_quad(x4):
 def _hp_fft_nd(x4, axes, kind, pre_shift_axes=(), post_shift_axes=(),
                post_kind: str = "fftshift"):
     """The hp transform, dispatched: native c128 XLA FFT on backends with
-    real float64, int8-limb MXU emulation elsewhere (or when forced via
+    real float64 (x64 on), int8-limb emulation otherwise (or when forced via
     config.hp_impl="emulate").  Contract identical to
     :func:`..ops.int8_dft.int8_fft_nd`: per-axis pre-ifftshift /
     post-shift rolls, 'irfft' returns a real (hi, lo) 2-tuple, everything
@@ -579,7 +574,7 @@ def _hp_fft_nd(x4, axes, kind, pre_shift_axes=(), post_shift_axes=(),
     elif kind == "rfft":
         out = jnp.fft.rfftn(jnp.real(z), axes=axes)
     elif kind == "irfft":
-        out = jnp.fft.irfftn(z, axes=axes)
+        out = xla_irfftn(z, axes)
     else:
         raise ValueError(f"unknown hp transform kind {kind!r}")
     if post:

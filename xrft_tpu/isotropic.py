@@ -2,11 +2,11 @@
 
 Re-implements ``isotropize`` / ``isotropic_power_spectrum`` /
 ``isotropic_cross_spectrum`` / ``fit_loglog``
-(``/root/reference/xrft/xrft.py:948-1214``) TPU-first: radial bin indices
-are a pure function of the static frequency grid, so they are computed once
-on host (with pandas' exact ``pd.cut`` semantics) and the aggregation runs
-as a dense one-hot MXU matmul (:mod:`.ops.binning`) — no scatter, no
-host round trips, batched over non-core dims.
+(xrft's ``xrft/xrft.py:948-1214``): radial bin indices are a pure
+function of the static frequency grid, so they are computed once on host
+(``pd.cut``'s exact semantics, in numpy) and only the per-bin sums run on
+the device (:mod:`.ops.binning`) — no host round trips, batched over
+non-core dims.
 """
 
 from __future__ import annotations

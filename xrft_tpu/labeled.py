@@ -233,8 +233,8 @@ class LabeledArray:
             # the high-precision (df64) results depend on keeping it
             pass
         elif isinstance(data, np.ndarray) and data.dtype.kind == "c":
-            # complex64 numpy input: split on host when the backend cannot
-            # execute complex dtypes (TPU); else device-put as native
+            # complex64 numpy input: split on host in split mode
+            # (config.complex_mode); else device-put as native
             from .ops.fft_core import use_split_complex
 
             data = carray.as_pair(data) if use_split_complex() else jnp.asarray(data)
@@ -348,10 +348,8 @@ class LabeledArray:
         data = self.data
         if isinstance(data, np.ndarray) and data.dtype == np.complex128:
             # host-resident complex128 (kept unconverted at construction to
-            # preserve f64 precision) must never cross a jit boundary as a
-            # complex leaf on split-complex backends: the TPU cannot
-            # execute complex HLOs and the failure surfaces asynchronously.
-            # Flatten it as an exact df64 quad instead (CDF64 is itself a
+            # preserve f64 precision) never crosses a jit boundary as a
+            # complex leaf in split mode.  Flatten it as an exact df64 quad instead (CDF64 is itself a
             # pytree, so jit sees four f32 leaves); engine='hp' consumes it
             # at full precision, the f32 engines degrade it to a pair in
             # fft_core._dispatch.
@@ -486,7 +484,6 @@ class LabeledArray:
                 if np.array_equal(order, (np.arange(n) + k) % n):
                     # cyclic permutation (e.g. natural fftfreq order ->
                     # ascending): slice+concat HLOs instead of a gather
-                    # — gathers run ~60x off bandwidth on the v5e
                     data = carray.roll(out.data, -k, axis)
                 elif np.array_equal(order, np.arange(n - 1, -1, -1)):
                     data = carray.flip(out.data, [axis])
@@ -534,7 +531,7 @@ class LabeledArray:
               ) -> "LabeledArray":
         """Declare logical chunk lengths per dim (metadata only).
 
-        The TPU analogue of dask chunking: chunk lengths feed
+        The analogue of dask chunking: chunk lengths feed
         ``fft(..., chunks_to_segments=True)`` (Welch segmenting) and batch
         sharding helpers; the data itself is not reorganized.
         """

@@ -9,13 +9,13 @@ least-squares fit ``y(w) = a*cos(w*t) + b*sin(w*t) [+ c]`` with optional
 sample weights and floating mean, and the three scipy ``normalize`` modes
 (``False``/``'power'``, ``True``/``'normalize'``, ``'amplitude'``).
 
-TPU-first shape: every quantity that depends only on the sample times,
+Shape: every quantity that depends only on the sample times,
 the weights, and the frequency grid — the trig matrices, the tau phase
 rotation that diagonalizes the normal equations, and the CC/SS/C/S
 moments — is computed on host in float64 and baked into the jaxpr as
 constants.  The only y-dependent terms are the projections
 ``YC[f] = sum_i w_i y_i cos(w_f (t_i - tau_f))`` (and YS), so the device
-work is ONE batched ``[..., N] x [N, 2F]`` matmul on the MXU plus O(F)
+work is ONE batched ``[..., N] x [N, 2F]`` matmul plus O(F)
 elementwise combines — no FFT, no scan, no dynamic shapes; jit-traceable
 end to end and batched over all non-transform dims (scipy is 1-D only).
 
@@ -73,11 +73,11 @@ def lombscargle(da, freqs, dim=None, normalize=False, weights=None,
     ``'power'`` (default) scales a unit-amplitude harmonic to ``N/4``;
     ``True`` / ``'normalize'`` is the [0, 1] power fraction of the
     weighted residuals around zero; ``'amplitude'`` returns the complex
-    best-fit amplitude+phase (a split pair on TPU).  ``weights`` are
+    best-fit amplitude+phase (a split pair in split mode).  ``weights`` are
     per-sample nonnegative weights (host array, length N);
     ``floating_mean`` fits a per-frequency y offset (ZK09).  Real input
     only.  Unlike scipy, the estimate is batched over all non-transform
-    dims in one MXU matmul.
+    dims in one matmul.
 
     The output replaces ``dim`` by ``freq_<dim>`` carrying ``freqs``
     as its coordinate (angular frequency, rad per coordinate unit; the
@@ -168,9 +168,9 @@ def lombscargle(da, freqs, dim=None, normalize=False, weights=None,
     y = da.data.astype(rdt) if da.data.dtype != rdt else da.data
     wy = y * wb
     M = const(np.concatenate([coswt_tau, sinwt_tau], axis=1))  # [N, 2F]
-    # HIGHEST precision like the engine's dots (ops/matmul_fft.py): the
-    # MXU's default bf16 passes cost ~4e-4 relative error here (measured
-    # on-chip), the 6-pass f32 contraction ~1e-7.
+    # HIGHEST precision like the engine's dots (ops/matmul_fft.py): a
+    # reduced-precision contraction (TF32 on an H100) would cost ~1e-4
+    # relative error here, the full f32 contraction ~1e-7.
     proj = jnp.tensordot(wy, M, axes=[[ax], [0]],
                          precision=jax.lax.Precision.HIGHEST)
     YC, YS = proj[..., :F], proj[..., F:]

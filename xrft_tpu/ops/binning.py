@@ -2,15 +2,12 @@
 
 The reference performs azimuthal binning with a host ``pd.cut`` plus a
 ``numpy_groupies`` scatter-add per block
-(``/root/reference/xrft/xrft.py:877-945``).  On TPU, scatters are slow and
-the bin *indices* depend only on the static frequency grid — so the
-aggregation becomes a dense matmul against a host-built one-hot
-``(n_points, n_bins)`` matrix, which runs on the MXU at full rate and
-batches over all non-core dims for free.  Out-of-range points (pd.cut code
--1) get an all-zero one-hot row and drop out of the sum naturally.
-
-``pd.cut`` right-closed equal-width bin semantics are reproduced exactly by
-calling pandas itself on the host grid.
+(xrft's ``xrft/xrft.py:877-945``).  Here the bin *indices* depend
+only on the static frequency grid, so they are computed once on the host
+(:func:`cut_codes`, ``pd.cut``'s equal-width right-closed semantics in
+numpy) and baked into the program; only the per-bin sums run on the
+device (:func:`binned_sum`, a grouped scatter-add).  Out-of-range points
+(code -1) drop out of the sum.
 """
 
 from __future__ import annotations
@@ -18,22 +15,38 @@ from __future__ import annotations
 import jax
 import jax.numpy as jnp
 import numpy as np
-import pandas as pd
+from jax.sharding import PartitionSpec
 
 from . import carray
 
 __all__ = ["cut_codes", "binned_sum", "binned_mean_np"]
 
-_HIGHEST = jax.lax.Precision.HIGHEST
-
 
 def cut_codes(values: np.ndarray, nbins: int):
-    """pd.cut equal-width right-closed bin codes for a flattened host array.
+    """``pd.cut(values, nbins)`` codes for a flattened host array.
 
-    Returns (codes, n_bins) with codes == -1 for out-of-range/NaN.
+    Equal-width right-closed bins over [min, max] of the non-NaN values,
+    with the lowest edge moved down by 0.1% of the range so the minimum
+    falls in bin 0 (all-equal values instead widen the range by 0.1% of
+    their magnitude, or by 0.001 at zero).  Returns (codes, n_bins) with
+    codes == -1 for NaN.
     """
-    binned = pd.cut(np.ravel(values), nbins)
-    return np.asarray(binned.codes), binned.categories.size
+    x = np.ravel(np.asarray(values))
+    if x.dtype.kind != "f":
+        x = x.astype(np.float64)
+    nan = np.isnan(x)
+    mn, mx = x[~nan].min(), x[~nan].max()
+    if mn == mx:
+        mn = mn - (0.001 * abs(mn) if mn != 0 else 0.001)
+        mx = mx + (0.001 * abs(mx) if mx != 0 else 0.001)
+        edges = np.linspace(mn, mx, nbins + 1)
+    else:
+        edges = np.linspace(mn, mx, nbins + 1)
+        edges[0] -= (mx - mn) * 0.001
+    ids = np.searchsorted(edges, x, side="left")
+    codes = ids - 1
+    codes[nan | (ids == 0) | (ids == edges.size)] = -1
+    return codes, nbins
 
 
 def binned_mean_np(values: np.ndarray, codes: np.ndarray, nbins: int) -> np.ndarray:
@@ -49,95 +62,8 @@ def binned_mean_np(values: np.ndarray, codes: np.ndarray, nbins: int) -> np.ndar
     return out
 
 
-def _onehot(codes: np.ndarray, nbins: int, rdtype) -> np.ndarray:
-    oh = np.zeros((codes.size, nbins), dtype=rdtype)
-    mask = codes >= 0
-    oh[np.nonzero(mask)[0], codes[mask]] = 1.0
-    return oh
-
-
-# above this many one-hot entries (points * bins; 64M f32 = 256 MB) the
-# dense-matmul constant gets prohibitively large — 2048^2 x 512 bins would
-# be ~8.6 GB — so large grids switch to a static-sort + boundary-difference
-# formulation with O(points) memory
-ONEHOT_MAX_ELEMENTS = 64 * 1024 * 1024
-
-
-def _sorted_plan(codes: np.ndarray, nbins: int):
-    """Host plan for the large-grid path: a stable argsort permutation
-    placing same-bin points contiguously (dropped, code -1, points first)
-    and the per-bin segment boundaries."""
-    order = np.argsort(codes, kind="stable")
-    sorted_codes = codes[order]
-    starts = np.searchsorted(sorted_codes, np.arange(nbins), side="left")
-    ends = np.searchsorted(sorted_codes, np.arange(nbins), side="right")
-    return order, starts, ends
-
-
-def _binned_sum_pallas(x, codes: np.ndarray, nbins: int, interpret: bool):
-    """Large-grid per-bin sum as a Pallas TPU kernel: for each chunk of
-    points the (chunk x nbins) one-hot is generated ON THE FLY in VMEM
-    (codes-vs-iota compare) and reduced immediately — no gather (the
-    XLA sorted-permutation path spends ~30 ms in a 4M-element gather on
-    the v5e; this kernel runs the same aggregation in ~2 ms), no
-    points x bins constant in the program.
-
-    x: (..., P) real array.  Returns (..., nbins).
-
-    Accumulation grade: per-bin partial sums accumulate *sequentially* in
-    f32 across the ~P/512 grid steps (each step contributes one already-
-    reduced chunk sum, so the error growth is ~sqrt(P/512) ulps on random
-    data — measured 2.2e-6 rel err vs an f64 host oracle at P=4M,
-    724 bins).  This is coarser than the sorted path's blocked pairwise
-    prefix; if grids grow another ~100x, switch the out_ref accumulator to
-    a per-chunk partial-sum tree (or f64 on hardware that supports it).
-    scripts/chip_checks.py pins the compiled kernel's parity on-chip.
-    """
-    from jax.experimental import pallas as pl
-
-    rdt = jnp.float32 if np.dtype(x.dtype) != np.dtype(np.float64) \
-        else jnp.float64
-    CH = 512
-    P = codes.size
-    pad = (-P) % CH
-    codes_dev = jnp.asarray(
-        np.pad(codes.astype(np.int32), (0, pad), constant_values=-1))
-    nb_pad = (-nbins) % 8  # sublane-align the bin axis
-    NB = nbins + nb_pad
-
-    def kern(codes_ref, data_ref, out_ref):
-        i = pl.program_id(0)
-
-        @pl.when(i == 0)
-        def _():
-            out_ref[...] = jnp.zeros_like(out_ref)
-
-        c = codes_ref[...]                     # (1, CH) int32
-        d = data_ref[...].astype(rdt)          # (1, CH)
-        biota = jax.lax.broadcasted_iota(jnp.int32, (NB, CH), 0)
-        oh = c == biota                        # (NB, CH) broadcast rows
-        out_ref[...] += jnp.sum(jnp.where(oh, d, rdt(0)), axis=1,
-                                keepdims=True)
-
-    def one(row):                              # (P,) -> (nbins,)
-        row = jnp.pad(row, (0, pad)) if pad else row
-        out = pl.pallas_call(
-            kern,
-            grid=(codes_dev.size // CH,),
-            in_specs=[
-                pl.BlockSpec((1, CH), lambda i: (0, i)),
-                pl.BlockSpec((1, CH), lambda i: (0, i)),
-            ],
-            out_specs=pl.BlockSpec((NB, 1), lambda i: (0, 0)),
-            out_shape=jax.ShapeDtypeStruct((NB, 1), rdt),
-            interpret=interpret,
-        )(codes_dev[None, :], row[None, :])
-        return out[:nbins, 0].astype(x.dtype)
-
-    batch = x.shape[:-1]
-    flat = x.reshape((-1, x.shape[-1]))
-    res = jax.vmap(one)(flat)
-    return res.reshape(batch + (nbins,))
+# points per scatter-add group (see binned_sum)
+GROUP = 8192
 
 
 def binned_sum(data, codes: np.ndarray, nbins: int):
@@ -145,61 +71,54 @@ def binned_sum(data, codes: np.ndarray, nbins: int):
     supports real arrays, native complex, and ComplexPairs.
     data shape (..., n_points) -> (..., nbins).
 
-    Small grids: one-hot MXU matmul (dense, scatter-free, batched for
-    free).  Large grids on TPU: a Pallas kernel generating the one-hot
-    per chunk in VMEM (no gather, no giant constant).  Large grids
-    elsewhere: gather by a static sort permutation (same-bin points
-    contiguous), then per-bin sums as differences of a blocked pairwise
-    prefix sum — still scatter-free, O(points) memory."""
-    from ..config import config
+    One grouped scatter-add: the points are cut into groups of ``GROUP``,
+    each group adds into its own copy of the bins (plus one bin that
+    collects the dropped, code -1, points), and the copies are summed.
+    Grouping spreads the scatter's atomic adds over ``nbins + 1`` times
+    more addresses and keeps each partial sum short.
 
-    impl = config.binned_sum_impl
-    if impl not in ("auto", "pallas", "pallas_interpret", "sorted"):
-        raise ValueError(f"unknown binned_sum_impl {impl!r}")
-    use_pallas = impl in ("pallas", "pallas_interpret") or (
-        impl == "auto"
-        and codes.size * nbins > ONEHOT_MAX_ELEMENTS
-        and jax.default_backend() == "tpu"
-    )
-    if use_pallas:
-        interp = (impl == "pallas_interpret"
-                  or jax.default_backend() != "tpu")
+    Chosen on an NVIDIA H100 80GB HBM3 (700 W power limit).  Times:
+    isotropic_power_spectrum end to end, median ms of 20 calls.  Errors:
+    the binned sum of 4 rows of |randn| against a float64 bincount
+    oracle, max|err| / max|ref|.
 
-        def mm(x):
-            return _binned_sum_pallas(x, codes, nbins, interp)
-    elif impl != "sorted" and codes.size * nbins <= ONEHOT_MAX_ELEMENTS:
-        def mm(x):
-            rdtype = np.float64 if np.dtype(x.dtype) in (
-                np.dtype(np.float64),
-            ) else np.float32
-            oh = jnp.asarray(_onehot(codes, nbins, rdtype))
-            return jnp.einsum("...p,pb->...b", x, oh, precision=_HIGHEST)
-    else:
-        order, starts, ends = _sorted_plan(codes, nbins)
-        oj = jnp.asarray(order)
-        # pairwise-accuracy prefix: blocked two-level cumsum (the naive
-        # running cumsum of ~4M f32 values would lose ~3 digits)
-        blk = 1024
-        npts = codes.size
-        pad = (-npts) % blk
+    ==========================  ================  ====================
+    route                       512^2, 128 bins   2048^2, 512 bins
+    ==========================  ================  ====================
+    grouped scatter-add (8192)  0.163, 1.6e-7     0.368, 9.2e-8
+    grouped scatter-add (1024)  0.278, 8.4e-8     0.346, 1.1e-7
+    plain scatter-add           0.285, 1.9e-6     0.828, 4.4e-6
+    sorted gather + prefix      0.330, 8.0e-6     0.305, 4.0e-5
+    one-hot matmul (HIGHEST)    0.299, 5.0e-7     (8.6 GB one-hot)
+    ==========================  ================  ====================
 
-        def mm(x):
-            xs = jnp.take(x, oj, axis=-1)
-            if pad:
-                widths = [(0, 0)] * (x.ndim - 1) + [(0, pad)]
-                xs = jnp.pad(xs, widths)
-            xb = xs.reshape(xs.shape[:-1] + (-1, blk))
-            within = jnp.cumsum(xb.astype(jnp.float32), axis=-1)
-            block_tot = within[..., -1]
-            block_off = jnp.cumsum(block_tot, axis=-1) - block_tot
-            prefix = (within + block_off[..., None]).reshape(
-                xs.shape[:-1] + (-1,))
-            # csum[i] = sum of sorted[:i+1]; bin b = csum[end-1]-csum[start-1]
-            zeros = jnp.zeros(prefix.shape[:-1] + (1,), prefix.dtype)
-            csum0 = jnp.concatenate([zeros, prefix], axis=-1)
-            se = jnp.take(csum0, jnp.asarray(ends), axis=-1)
-            ss = jnp.take(csum0, jnp.asarray(starts), axis=-1)
-            return (se - ss).astype(x.dtype)
+    The sorted prefix-difference route loses digits to cancellation
+    (4e-5 fails the 1e-5 isotropic tolerance) and the one-hot constant
+    grows with points x bins, so both were removed.  A scatter-add's
+    order of accumulation varies from run to run; the grouped sums stay
+    ~1e-7 relative, well inside 1e-5.
+    """
+    P = codes.size
+    gs = max(1, min(GROUP, P))
+    pad = (-P) % gs
+    c = np.pad(np.where(codes < 0, nbins, codes), (0, pad),
+               constant_values=nbins)
+    groups = c.size // gs
+    ids = jnp.asarray(
+        (c + (np.arange(c.size) // gs) * (nbins + 1)).astype(np.int32))
+
+    def mm(x):
+        if pad:
+            x = jnp.pad(x, [(0, 0)] * (x.ndim - 1) + [(0, pad)])
+        out = jnp.zeros(x.shape[:-1] + (groups * (nbins + 1),), x.dtype)
+        # the output keeps x's batch-dim sharding and replicates the bins
+        # (sharding-typed meshes require it stated)
+        sh = jax.typeof(x).sharding
+        spec = list(sh.spec) + [None] * (x.ndim - len(sh.spec))
+        out = out.at[..., ids].add(
+            x, out_sharding=sh.update(spec=PartitionSpec(*spec[:-1], None)))
+        out = out.reshape(x.shape[:-1] + (groups, nbins + 1))
+        return out.sum(axis=-2)[..., :nbins]
 
     if carray.is_pair(data):
         return carray.ComplexPair(mm(data.re), mm(data.im))

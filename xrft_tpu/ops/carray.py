@@ -1,23 +1,21 @@
 """Split-complex array support.
 
-The TPU backend in this environment executes no complex-dtype HLOs at all
-(probed empirically: any program containing complex64 ops fails at runtime;
-complex128 is rejected at compile time).  The spectral pipeline therefore
-runs complex arithmetic in *split* form — a ``ComplexPair`` pytree of two
-real arrays — on backends without complex support, and in native complex
-dtype elsewhere (CPU/GPU).
+The spectral pipeline runs complex arithmetic in native complex dtypes by
+default; with ``config.complex_mode="split"`` (and inside the matmul
+engine) it runs in *split* form — a ``ComplexPair`` pytree of two real
+arrays.  Split mode is plain JAX, kept reachable until ROADMAP.md Design
+1.2 removes it.
 
 This module is the single dispatch point: every complex operation the
 library performs (conjugation, magnitude, phase factors, twiddle multiplies,
 Hermitian mirroring, shifts, …) goes through these functions, which accept
 either a native complex ``jax.Array`` or a ``ComplexPair`` and return the
 same representation.  The two representations are numerically identical by
-construction, so CPU tests that force split mode validate the exact TPU
-code path.
+construction, so CPU tests that force split mode keep that code path
+covered.
 
-This design follows "Large-Scale Discrete Fourier Transform on TPUs"
-(arXiv:2002.03260, PAPERS.md), which likewise formulates the DFT with
-separate real/imaginary matmuls on the MXU.
+This design follows arXiv:2002.03260 (PAPERS.md), which likewise formulates the DFT with
+separate real/imaginary matmuls.
 """
 
 from __future__ import annotations
@@ -291,7 +289,7 @@ def as_pair(x) -> ComplexPair:
     if isinstance(x, complex):
         return ComplexPair(jnp.asarray(x.real), jnp.asarray(x.imag))
     if isinstance(x, np.ndarray) and x.dtype.kind == "c":
-        # split on host: complex arrays must never be device_put on TPU
+        # split on host: the complex array is never device_put
         return ComplexPair(
             jnp.asarray(np.ascontiguousarray(x.real)),
             jnp.asarray(np.ascontiguousarray(x.imag)),

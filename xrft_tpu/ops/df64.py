@@ -1,15 +1,22 @@
 """Double-word float32 ("df64") arithmetic: ~49-bit-mantissa reals built
-from pairs of f32, giving float64-grade spectral accuracy on a TPU that has
-no f64 execution at all.
+from pairs of f32, giving float64-grade spectral accuracy without float64
+execution (``config.hp_impl="emulate"``).
 
 Every value is (hi, lo) with hi = fl(hi+lo) and |lo| <= ulp(hi)/2.  The
-primitives are the classical error-free transformations (Knuth TwoSum,
-Dekker split / TwoProduct — no FMA required, which this VPU does not
-expose) and are exact in IEEE f32 arithmetic; XLA does not reassociate
-floating-point ops, so the sequences survive compilation.
+primitives are the classical error-free transformations (Knuth TwoSum; a
+float32 TwoProduct built from exact partial products, see
+:func:`two_prod`) and are exact in IEEE f32 arithmetic; XLA does not
+reassociate floating-point ops, so the sequences survive compilation.
 
-Used by :mod:`.df64_fft` for the high-precision DFT path (hard part #1 in
-SURVEY.md §7: float64/complex128 FFT accuracy on TPU).
+FMA contraction is the one rewrite that can break such sequences: XLA:CPU
+lets LLVM contract multiplies into their consumers (and GPU code
+generators may do the same).  :func:`split` and :func:`two_prod` therefore
+never rely on a product being rounded: in float32 every product they form
+is exact, so a contracted and an uncontracted program compute the same
+values.
+
+Used by :mod:`.df64_fft`, :mod:`.int8_dft` and :mod:`.hp` for the
+emulated high-precision path.
 """
 
 from __future__ import annotations
@@ -18,60 +25,64 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
-# Dekker splitting constant for f32: 2^12 + 1
-_SPLIT = np.float32(4097.0)
-
-# Backend caveat: XLA:TPU (and Mosaic) compile these sequences faithfully —
-# the df64 dot product achieves ~2e-14 relative error on the chip.  XLA:CPU
-# however lets LLVM contract multiplies into FMAs across use sites
-# (duplicating the product into each consumer fusion), which collapses the
-# error terms to plain f32; optimization_barrier does not survive this
-# XLA version's pipeline and Mosaic cannot lower it, so there is no
-# portable guard.  df64 precision is therefore a TPU-only contract;
-# CPU tests assert the algorithm shape at relaxed (f32) tolerance and the
-# strict 1e-12 bound is pinned on-chip (tests/test_df64_fft.py,
-# scripts/chip_checks.py).
-_ob = lambda x: x
+# significand masks of split(): float32 keeps 11 of its 23 stored bits
+# (12 + 12-bit halves), float64 26 of its 52 (27 + 26-bit halves)
+_MASKS = {4: (jnp.uint32, np.uint32(0xFFFFF000)),
+          8: (jnp.uint64, np.uint64(0xFFFFFFFFFC000000))}
 
 
 def two_sum(a, b):
     """Error-free a+b: returns (s, e) with s+e == a+b exactly."""
     s = a + b
-    bb = _ob(s - a)
-    e = (a - _ob(s - bb)) + (b - bb)
+    bb = s - a
+    e = (a - (s - bb)) + (b - bb)
     return s, e
 
 
 def quick_two_sum(a, b):
     """Error-free a+b assuming |a| >= |b|."""
     s = a + b
-    e = b - _ob(s - a)
+    e = b - (s - a)
     return s, e
 
 
 def split(a):
-    """Dekker split of f32 into 12+12-bit halves (exact).
+    """Split into halves by masking the significand: (hi, lo) with
+    hi + lo == a, both exact, and no product rounded on the way (so no
+    compiler rewrite can perturb it).
 
-    The barrier on ``c`` additionally stops LLVM FMA contraction of the
-    (SPLIT*a) product into the following subtract — Dekker requires the
-    *rounded* product.
+    float32 halves carry 12 bits each, so their pairwise products are
+    exact.  float64 (the planes of the native hp mode) splits 27 + 26
+    bits; a product of two 27-bit halves may round in its last bit, which
+    leaves float64 accuracy, all that mode needs.
     """
-    c = _ob(_SPLIT * a)
-    t = _ob(c - a)
-    hi = c - t
-    return hi, a - _ob(hi)
+    a = jnp.asarray(a)
+    utype, mask = _MASKS[a.dtype.itemsize]
+    bits = jax.lax.bitcast_convert_type(a, utype)
+    hi = jax.lax.bitcast_convert_type(bits & mask, a.dtype)
+    return hi, a - hi
 
 
 def two_prod(a, b):
-    """Error-free a*b: returns (p, e) with p+e == a*b exactly.
+    """Error-free a*b: returns (p, e) with p == fl(a*b) and p+e == a*b
+    (float32; float64 to float64 accuracy, see :func:`split`).
 
-    ``p`` is barriered so later uses (p+e, s-p) see the rounded product
-    rather than an FMA-contracted exact one.
+    p is formed from the four partial products of the split halves, each
+    exact, summed with error-free additions, and ``a*b`` itself is never
+    multiplied: a compiler that contracts a rounded ``a*b`` into its
+    consumers as an unrounded FMA operand (XLA:CPU's LLVM backend does)
+    would otherwise pair an exact product with a rounded one and lose
+    ``e``.  Contracting any product formed here changes nothing, since
+    every one of them is exact.
     """
-    p = _ob(a * b)
     ah, al = split(a)
     bh, bl = split(b)
-    e = ((ah * bh - p) + ah * bl + al * bh) + al * bl
+    hh, hl, lh, ll = ah * bh, ah * bl, al * bh, al * bl
+    s, e1 = two_sum(hh, hl)
+    s, e2 = two_sum(s, lh)
+    s, e3 = two_sum(s, ll)
+    p = s + (e1 + (e2 + e3))
+    e = ((hh - p) + hl + lh) + ll
     return p, e
 
 

@@ -1,34 +1,32 @@
-"""Float64-emulated FFT on TPU: double-word (two-float32) DFT.
+"""Float64-emulated FFT: double-word (two-float32) DFT.
 
-Why: the MXU accumulates matmuls in f32, so no matmul formulation can beat
-~1e-7 relative error; reaching the 1e-10 accuracy contract (BASELINE.md) on
-a chip with no f64/complex support requires compensated arithmetic on the
-VPU.  This module implements the DFT in complex df64 (see :mod:`.df64`):
+A float32 dot accumulates in float32, so no matmul formulation of the DFT
+beats ~1e-7 relative error; reaching the 1e-10 accuracy contract without
+float64 arithmetic needs compensated (error-free) arithmetic.  This module
+implements the DFT in complex df64 (see :mod:`.df64`):
 
-  * a 2-D-only Pallas kernel (`_df64_dft_kernel`) that contracts the last
-    axis against a df64 DFT matrix with error-free rank-1 updates, keeping
-    the running df64 accumulator in VMEM (the deployment Mosaic toolchain
-    supports exactly this op set: 2-D tiles, dynamic row/col slices,
-    fori_loop);
-  * a four-step recursion (`df64_fft_nd`) with df64 twiddle multiplies at
-    the XLA level, so any factorable size composes from kernel-sized
-    stages.
+  * a direct DFT over the last axis (``_df64_dft_last``) that contracts
+    against a df64 DFT matrix with error-free rank-1 updates in a
+    ``lax.fori_loop``;
+  * a four-step recursion (``df64_fft_nd``) with df64 twiddle multiplies,
+    so any factorable size composes from direct stages of at most
+    ``_DIRECT_MAX`` points.
 
-This is an opt-in precision mode (~10-40x the flops of the f32 matmul
-engine, all on the VPU); the standard pipeline stays on the MXU path.
-Accuracy: ~1e-12 relative vs numpy complex128 (pinned in
-tests/test_df64_fft.py).
+It serves ``config.hp_impl="emulate"`` and the eager ``fft64``/``ifft64``
+fallback for sizes the int8-limb engine cannot factor; with x64 on, the
+hp path runs native float64 instead.  The df64 primitives form no
+rounded product, so FMA contraction by the compiler (XLA:CPU does it)
+leaves them exact; tests/test_df64_fft.py pins the strict-IEEE primitives
+and the compiled engine at ~1e-12.
 """
 
 from __future__ import annotations
 
-from functools import lru_cache, partial
+from functools import lru_cache
 
 import jax
 import jax.numpy as jnp
 import numpy as np
-from jax.experimental import pallas as pl
-from jax.experimental.pallas import tpu as pltpu
 
 from . import df64
 from .carray import ComplexPair, is_pair
@@ -36,7 +34,7 @@ from .matmul_fft import _dft_matrix_np, _largest_small_divisor, _twiddle_np
 
 __all__ = ["df64_fft_nd", "df64_to_numpy", "as_df64"]
 
-_KERNEL_MAX = 256  # largest direct df64 DFT (VMEM: 8 const + 12 data tiles)
+_DIRECT_MAX = 256  # largest axis transformed by one direct df64 DFT
 
 
 # -- representation ---------------------------------------------------------
@@ -93,66 +91,26 @@ def _tw_consts(n1: int, n2: int, sign: int):
     )
 
 
-# -- Pallas kernel ----------------------------------------------------------
+# -- direct DFT -------------------------------------------------------------
 
 
-def _df64_dft_kernel(n, *refs):
-    (xrh, xrl, xih, xil, wrh, wrl, wih, wil,
-     orh, orl, oih, oil) = refs
-    zero = jnp.zeros(orh.shape, jnp.float32)
-    orh[:] = zero
-    orl[:] = zero
-    oih[:] = zero
-    oil[:] = zero
-    xr_h, xr_l, xi_h, xi_l = xrh[:], xrl[:], xih[:], xil[:]
-    # Mosaic cannot dynamically slice the lane (last) dimension, so the
-    # j-th input column is extracted with a masked lane reduction instead.
-    lane = jax.lax.broadcasted_iota(jnp.int32, xr_h.shape, 1)
+def _df64_dft_last(x4, n, sign):
+    """Direct df64 DFT over the last axis: the contraction against the
+    df64 DFT matrix is a sequence of compensated rank-1 updates (column j
+    of the input times row j of the matrix, added into a df64
+    accumulator), run as a ``lax.fori_loop`` over XLA arrays."""
+    w4 = tuple(jnp.asarray(c) for c in _w_consts(n, sign))
+    zero = jnp.zeros(x4[0].shape, jnp.float32)
 
-    def col(v, j):
-        return jnp.sum(jnp.where(lane == j, v, 0.0), axis=1, keepdims=True)
+    def step(j, acc):
+        xcol = tuple(jax.lax.dynamic_index_in_dim(v, j, axis=-1)
+                     for v in x4)                       # (..., 1)
+        wrow = tuple(jax.lax.dynamic_index_in_dim(w, j, axis=0,
+                                                  keepdims=False)
+                     for w in w4)                       # (n,)
+        return df64.cadd(acc, df64.cmul(xcol, wrow))
 
-    def step(j, _):
-        xcol = (col(xr_h, j), col(xr_l, j), col(xi_h, j), col(xi_l, j))
-        wrow = (
-            wrh[pl.ds(j, 1), :], wrl[pl.ds(j, 1), :],
-            wih[pl.ds(j, 1), :], wil[pl.ds(j, 1), :],
-        )
-        prod = df64.cmul(xcol, wrow)
-        res = df64.cadd((orh[:], orl[:], oih[:], oil[:]), prod)
-        orh[:], orl[:], oih[:], oil[:] = res
-        return 0
-
-    jax.lax.fori_loop(0, n, step, 0)
-
-
-def _df64_dft_last(x4, n, sign, interpret):
-    """Direct df64 DFT over the last axis via the Pallas kernel."""
-    shape = x4[0].shape
-    rows = int(np.prod(shape[:-1])) if len(shape) > 1 else 1
-    flat = tuple(v.reshape(rows, n) for v in x4)
-
-    blk = None
-    for cand in (128, 64, 32, 16, 8, 4, 2, 1):
-        if rows % cand == 0:
-            blk = cand
-            break
-    consts = tuple(jnp.asarray(c) for c in _w_consts(n, sign))
-
-    data_spec = pl.BlockSpec((blk, n), lambda i: (i, 0),
-                             memory_space=pltpu.VMEM)
-    const_spec = pl.BlockSpec(memory_space=pltpu.VMEM)
-    out = pl.pallas_call(
-        partial(_df64_dft_kernel, n),
-        grid=(rows // blk,),
-        in_specs=[data_spec] * 4 + [const_spec] * 4,
-        out_specs=(data_spec,) * 4,
-        out_shape=tuple(
-            jax.ShapeDtypeStruct((rows, n), jnp.float32) for _ in range(4)
-        ),
-        interpret=interpret,
-    )(*flat, *consts)
-    return tuple(v.reshape(shape) for v in out)
+    return jax.lax.fori_loop(0, n, step, (zero,) * 4)
 
 
 # -- recursion --------------------------------------------------------------
@@ -166,10 +124,10 @@ def _reshape4(x4, shape):
     return tuple(v.reshape(shape) for v in x4)
 
 
-def _df64_fft_last(x4, n, sign, interpret):
-    if n <= _KERNEL_MAX:
-        return _df64_dft_last(x4, n, sign, interpret)
-    n1 = _largest_small_divisor(n, _KERNEL_MAX)
+def _df64_fft_last(x4, n, sign):
+    if n <= _DIRECT_MAX:
+        return _df64_dft_last(x4, n, sign)
+    n1 = _largest_small_divisor(n, _DIRECT_MAX)
     if n1 == 1:
         raise NotImplementedError(
             f"df64 FFT of prime size {n} (Bluestein in df64) is not "
@@ -180,19 +138,19 @@ def _df64_fft_last(x4, n, sign, interpret):
     a = _reshape4(x4, shape[:-1] + (n1, n2))
     # stage 1: DFT over n1 (bring it last, recurse)
     a = _moveaxis4(a, -2, -1)
-    a = _df64_fft_last(a, n1, sign, interpret)      # (..., n2, k1)
+    a = _df64_fft_last(a, n1, sign)      # (..., n2, k1)
     a = _moveaxis4(a, -1, -2)                       # (..., k1, n2)
     # twiddle T[k1, m2] in df64 at the XLA level
     trh, trl, tih, til = (jnp.asarray(c) for c in _tw_consts(n1, n2, sign))
     a = df64.cmul(a, (trh, trl, tih, til))
     # stage 2: DFT over n2 (last axis)
-    a = _df64_fft_last(a, n2, sign, interpret)      # (..., k1, k2)
+    a = _df64_fft_last(a, n2, sign)      # (..., k1, k2)
     # output index k = k1 + n1*k2
     a = tuple(jnp.swapaxes(v, -1, -2) for v in a)
     return _reshape4(a, shape[:-1] + (n,))
 
 
-def df64_fft_nd(x, axes, kind: str = "fft", interpret: bool | None = None):
+def df64_fft_nd(x, axes, kind: str = "fft"):
     """N-D FFT in emulated float64; returns a df64 4-tuple
     (re_hi, re_lo, im_hi, im_lo).
 
@@ -202,8 +160,6 @@ def df64_fft_nd(x, axes, kind: str = "fft", interpret: bool | None = None):
     x4 = as_df64(x)
     ndim = x4[0].ndim
     axes = [a % ndim for a in axes]
-    if interpret is None:
-        interpret = jax.default_backend() == "cpu"
     sign = -1 if kind == "fft" else +1
     out = x4
     scale = 1.0
@@ -211,10 +167,10 @@ def df64_fft_nd(x, axes, kind: str = "fft", interpret: bool | None = None):
         n = out[0].shape[a]
         if a != ndim - 1:
             out = _moveaxis4(out, a, -1)
-            out = _df64_fft_last(out, n, sign, interpret)
+            out = _df64_fft_last(out, n, sign)
             out = _moveaxis4(out, -1, a)
         else:
-            out = _df64_fft_last(out, n, sign, interpret)
+            out = _df64_fft_last(out, n, sign)
         scale *= n
     if kind == "ifft":
         inv = np.float64(1.0 / scale)

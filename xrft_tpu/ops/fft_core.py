@@ -4,9 +4,10 @@ Replaces the reference's numpy/dask execution fork (``_fft_module``,
 ``/root/reference/xrft/xrft.py:32-36``) with an XLA-engine fork:
 
   * ``xla``    — lower to the FFT HLO (CPU/GPU: pocketfft/ducc & cuFFT),
-                 native complex dtypes.
-  * ``matmul`` — the MXU four-step engine over split-complex pairs (TPU,
-                 where neither the FFT HLO nor complex dtypes exist).
+                 native complex dtypes.  The default.
+  * ``matmul`` — the four-step matmul engine over split-complex pairs
+                 (plain JAX dots; kept reachable through
+                 ``config.fft_engine`` until ROADMAP.md Design 1.2).
 
 Both engines implement the same unnormalized-forward / (1/N)-inverse
 convention as ``numpy.fft``, so every downstream scaling rule (true
@@ -23,7 +24,7 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
-from ..config import config, resolve_fft_engine
+from ..config import check_backend, config, resolve_fft_engine
 from . import carray
 from .carray import as_native, as_pair, is_pair
 from .matmul_fft import matmul_fft_nd
@@ -37,14 +38,42 @@ __all__ = [
 def use_split_complex() -> bool:
     """True when complex data must be carried as split (re, im) pairs.
 
-    auto: split on any backend that is not cpu/gpu (i.e. TPU, where complex
-    HLOs do not execute).  Tests force split mode on CPU to validate the
-    exact TPU code path.
+    auto: native complex on the supported backends (and an error on any
+    other, see :func:`..config.check_backend`).  Tests force split mode on
+    CPU to keep the split-pair code path covered.
     """
     mode = config.complex_mode
     if mode == "auto":
-        return jax.default_backend() not in ("cpu", "gpu", "cuda", "rocm")
+        check_backend()
+        return False
     return mode == "split"
+
+
+def xla_irfftn(x, axes):
+    """``np.fft.irfftn(x, axes=axes)`` for ANY input, Hermitian-consistent
+    or not: the reference xrft's ``ifft`` with ``real_dim`` is numpy's
+    ``irfftn``, and these are its semantics.
+
+    numpy runs complex inverse FFTs over ``axes[:-1]``, then a 1-D c2r
+    over ``axes[-1]`` that reads only the real parts of the DC and Nyquist
+    planes.  Only those two planes hold redundant bins (k and -k along the
+    leading axes), and a multi-dimensional c2r library call (cuFFT's)
+    reads inconsistent ones differently.  Replacing each by its Hermitian
+    part along the leading axes gives the input whose one c2r transform
+    every library agrees on, and it is numpy's result.
+    """
+    x = jnp.asarray(x)
+    *lead, last = [a % x.ndim for a in axes]
+    if jnp.iscomplexobj(x):
+        m = x.shape[last]
+        for k in sorted({0, m - 1}):
+            ix = (slice(None),) * last + (slice(k, k + 1),)
+            plane = x[ix]
+            mirror = plane     # bin -k (mod n) at k along each leading axis
+            for a in lead:
+                mirror = jnp.roll(jnp.flip(mirror, a), 1, a)
+            x = x.at[ix].set((plane + jnp.conj(mirror)) / 2)
+    return jnp.fft.irfftn(x, axes=axes)
 
 
 def _xla_fft_nd(x, axes, kind):
@@ -55,7 +84,7 @@ def _xla_fft_nd(x, axes, kind):
     if kind == "rfft":
         return jnp.fft.rfftn(x, axes=axes)
     if kind == "irfft":
-        return jnp.fft.irfftn(x, axes=axes)
+        return xla_irfftn(x, axes)
     raise ValueError(kind)
 
 

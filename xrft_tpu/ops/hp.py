@@ -2,7 +2,8 @@
 
 The BASELINE contract (BASELINE.md) asks for <= 1e-10 relative agreement
 with float64 numpy for full *pipelines* — detrend, window, transform,
-magnitude, scaling — on a TPU with no float64 execution.  A high-precision
+magnitude, scaling — without float64 execution (the emulated hp mode).
+A high-precision
 DFT alone is not enough: every elementwise and reduction stage must also
 carry ~2x f32 precision.  This module provides those stages over the
 double-word representation of :mod:`.df64` (value = hi + lo):
@@ -16,12 +17,12 @@ double-word representation of :mod:`.df64` (value = hi + lo):
 - ``window_quad``: separable window multiply with host-float64 windows
   split exactly into (hi, lo) constants.
 - ``masked_bin_sums``: per-bin compensated sums (the df64 analogue of the
-  isotropic one-hot aggregation in :mod:`.binning`).
+  isotropic grouped scatter-add in :mod:`.binning`).
 
-Accuracy caveat (see :mod:`.df64`): these sequences are faithful on
-XLA:TPU/Mosaic; XLA:CPU contracts them to plain f32 via LLVM FMA fusion,
-so CPU tests assert shape/f32-grade and the strict bounds are pinned
-on-chip in scripts/chip_checks.py.
+Accuracy (see :mod:`.df64`): the float32 primitives never depend on a
+rounded product, so FMA contraction (XLA:CPU's LLVM backend contracts)
+leaves them exact; the strict bounds are pinned in tests/test_hp_*.py and
+by chip_smoke.py's emulated-hp phase on the GPU.
 """
 
 from __future__ import annotations
@@ -64,7 +65,7 @@ def as_quad(x) -> tuple:
 
     def dev_split(v):
         """Exact (hi, lo) split of a device float64 array (x64 backends
-        only; the TPU never holds f64 device arrays)."""
+        only)."""
         if np.dtype(v.dtype) == np.dtype(np.float64):
             hi = v.astype(jnp.float32)
             lo = (v - hi.astype(jnp.float64)).astype(jnp.float32)

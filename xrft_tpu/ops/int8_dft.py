@@ -1,10 +1,11 @@
-"""High-precision DFT from exact int8 MXU matmuls (Ozaki-style limb scheme).
+"""High-precision DFT from exact int8 matmuls (Ozaki-style limb scheme).
 
-The df64 path (:mod:`.df64_fft`) reaches ~2e-14 but runs on the VPU at
-~1000x the cost of a matmul.  This module gets comparable accuracy out of
-the MXU itself, using the one operation this TPU performs *exactly*:
-int8 x int8 matmuls accumulated in int32 (verified exact on-chip; products
-<= 2^14, so sums stay exact for K <= 2^17).
+The df64 path (:mod:`.df64_fft`) reaches ~2e-14 but costs ~1000x a matmul
+in elementwise work.  This module gets comparable accuracy out of matrix
+units, using an operation they perform *exactly*: int8 x int8 matmuls
+accumulated in int32 (products <= 2^14, so sums stay exact for
+K <= 2^17).  It serves the emulated hp mode (``config.hp_impl``), kept
+reachable until ROADMAP.md Design 1.3 removes it.
 
 Scheme (classical multi-word / Ozaki splitting):
 
@@ -20,8 +21,8 @@ Scheme (classical multi-word / Ozaki splitting):
     matmuls, combined in df64 (each int32 partial converts to an exact
     f32 hi/lo pair).  Pairs below the target precision are truncated.
 
-Accuracy measured on-chip: 6e-15 (n=256) / 8e-14 (n=1024) relative — at or
-beyond the VPU df64 path — at MXU matmul speed.  Shipped surface:
+Accuracy ~1e-14 (n=256) to ~1e-13 (n=1024) relative (tests/test_int8_dft.py)
+— at or beyond the df64 path — at matmul speed.  Shipped surface:
 :func:`int8_dft_last` (direct DFT, n <= ~2000 for the K-exactness bound
 with margin), :func:`int8_fft_last` (four-step composition to larger
 sizes), and :func:`int8_fft_nd` (N-D fft/ifft/rfft/irfft with absorbed
@@ -80,9 +81,14 @@ def _x_limbs(x, rows_shape):
     per-limb scales (f32 (...,1) arrays))."""
     absmax = jnp.max(jnp.abs(x), axis=-1, keepdims=True)
     absmax = jnp.where(absmax == 0, 1.0, absmax)
-    # power-of-two scale so divisions are exact
-    e = jnp.ceil(jnp.log2(absmax))
-    S = jnp.exp2(e)
+    # power-of-two scale S > absmax, so divisions are exact: one above
+    # absmax's binary exponent, built from its bits (log2/exp2 may be
+    # approximate on a GPU, and an inexact S breaks the exact split)
+    biased = jax.lax.shift_right_logical(
+        jax.lax.bitcast_convert_type(absmax.astype(jnp.float32), jnp.uint32),
+        np.uint32(23))
+    S = jax.lax.bitcast_convert_type(
+        jax.lax.shift_left(biased + np.uint32(1), np.uint32(23)), jnp.float32)
     u = x / S  # exact (power-of-two divide), |u| <= 1
     q1f = jnp.rint(u * (2.0 ** X_Q))
     q1 = q1f.astype(jnp.int32)
@@ -144,7 +150,7 @@ def _int8_real_transform(x, n, sign, sig_cutoff):
 
 
 def int8_dft_last(x, sign: int = -1):
-    """Direct high-precision DFT along the last axis via int8 MXU matmuls.
+    """Direct high-precision DFT along the last axis via int8 matmuls.
 
     x: real f32 array OR df64 4-tuple (re_hi, re_lo, im_hi, im_lo),
     shape (..., n) with n <= 2000.  Returns a df64 4-tuple; combine with
@@ -207,8 +213,8 @@ def int8_fft_last(x, sign: int = -1):
         -> int8 DFT over n2 -> output permutation
 
     Supports any n = n1*n2 with n1, n2 <= 2000 (n up to 4M).  Input: real
-    f32 array or df64 4-tuple; output df64 4-tuple.  Measured on-chip at
-    n=4096: ~1e-13 relative error.
+    f32 array or df64 4-tuple; output df64 4-tuple.  ~1e-13 relative
+    error at n=4096.
     """
     is4 = isinstance(x, tuple)
     shape = (x[0] if is4 else x).shape
@@ -251,7 +257,7 @@ def _roll4(x4, shift, axis):
 
 def int8_fft_nd(x, axes, kind: str = "fft", pre_shift_axes=(),
                 post_shift_axes=(), post_kind: str = "fftshift"):
-    """High-precision N-D transform via per-axis int8-limb MXU DFTs.
+    """High-precision N-D transform via per-axis int8-limb DFTs.
 
     x: f32/f64 array, 4-tuple, or anything :func:`..hp.as_quad` accepts.
     kind: 'fft' | 'ifft' | 'rfft' | 'irfft' (real axis = last of ``axes``
@@ -260,7 +266,7 @@ def int8_fft_nd(x, axes, kind: str = "fft", pre_shift_axes=(),
     machinery of the f32 engines is not needed here).  Returns a complex
     df64 4-tuple; 'irfft' returns a real df64 (hi, lo) 2-tuple.
 
-    Accuracy: ~1e-13 relative on-chip (scripts/chip_checks.py); axis sizes
+    Accuracy: ~1e-13 relative (tests/test_int8_dft.py); axis sizes
     up to 4M (two int8 DFT stages of <= 2000 each).
     """
     from . import df64 as _df64

@@ -1,12 +1,11 @@
-"""MXU matmul FFT engine (split-complex).
+"""Matmul FFT engine (split-complex), ``config.fft_engine="matmul"``.
 
-The TPU in this environment exposes no FFT HLO and cannot execute
-complex-dtype programs at all, so the hot transform path is built from the
-operations the hardware *is* excellent at: dense real-valued matmuls on the
-128x128 systolic array, over a split (re, im) representation
-(``carray.ComplexPair``).  The construction follows the classical
-Cooley-Tukey "four-step" factorization (cf. "Large-Scale Discrete Fourier
-Transform on TPUs", arXiv:2002.03260 — see PAPERS.md):
+The transform is built from dense real-valued matmuls over a split
+(re, im) representation (``carray.ComplexPair``).  The default engine is
+XLA's FFT (cuFFT on a GPU); this one is plain JAX, kept reachable until
+ROADMAP.md Design 1.2 removes it.  The construction follows the classical
+Cooley-Tukey "four-step" factorization (cf. arXiv:2002.03260 — see
+PAPERS.md):
 
   * N <= direct_dft_max          : one dense DFT matmul, O(N) work/element
                                    (2 real matmuls for real input, 4 for
@@ -14,7 +13,7 @@ Transform on TPUs", arXiv:2002.03260 — see PAPERS.md):
   * N = N1 * N2 (N1 small)       : DFT_N1 matmul over the leading factor,
                                    twiddle multiply, recursive FFT over N2,
                                    transpose-and-flatten.  O(sum of radices)
-                                   work/element with MXU-sized radices.
+                                   work/element with matmul-sized radices.
   * N prime (no small divisor)   : Bluestein chirp-z; the chirp spectrum is
                                    precomputed on host in float64 and baked
                                    in as a constant, so only two
@@ -23,8 +22,8 @@ Transform on TPUs", arXiv:2002.03260 — see PAPERS.md):
 All DFT/twiddle/chirp constants are computed host-side with exact integer
 modular angle arithmetic ((j*k) mod N) and float64 trig, then embedded as
 trace-time constants — the device never evaluates transcendentals for them.
-Matmuls run at ``Precision.HIGHEST`` (6-pass bf16 on the MXU ≈ f32
-accuracy); in float64 mode (CPU) they are exact f64 matmuls, giving
+Matmuls run at ``Precision.HIGHEST`` (full f32 products: no bf16 passes,
+no TF32); in float64 mode they are exact f64 matmuls, giving
 ~1e-12 numpy parity (validated in tests/test_matmul_fft.py).
 
 This engine replaces what numpy/pocketfft provides to the reference library
@@ -160,7 +159,7 @@ def _apply_dft(x, w_np: np.ndarray, rdtype, contract_axis: int,
                out_swapped: bool = False) -> ComplexPair:
     """Contract x (real array or ComplexPair) along ``contract_axis``
     (-1 or -2) with the DFT matrix: 2 real matmuls for real input, 4 for
-    complex — all at full f32/f64 MXU/ALU rate.
+    complex — all at full f32/f64 precision.
 
     out_swapped=True (with contract_axis=-1 on a (..., m, j) input) emits
     the result with the last two axes already swapped: (..., k, m)."""
@@ -223,13 +222,6 @@ def _fft_last_impl(x, n, sign, rdtype, pre=False, post=None) -> ComplexPair:
         return x if is_pair(x) else ComplexPair(x.astype(rdtype), jnp.zeros_like(x, dtype=rdtype))
     if n <= config.direct_dft_max:
         return _apply_dft(x, _dft_matrix_np(n, sign, pre, post), rdtype, -1)
-    from .pallas_fft import can_use_pallas, pallas_fft_last
-
-    rows = 1
-    for s in x.shape[:-1]:
-        rows *= s
-    if (not pre and not post) and can_use_pallas(n, rows, rdtype):
-        return pallas_fft_last(x, sign)
     n1 = _largest_small_divisor(n, config.direct_dft_max)
     if n1 == 1:
         if pre:   # explicit ifftshift: roll by -(n//2)
@@ -303,7 +295,7 @@ def _rfft_packed_last(x, n) -> ComplexPair:
     z = ComplexPair(x[..., 0::2].astype(rdtype), x[..., 1::2].astype(rdtype))
     Z = _fft_last_impl(z, m, -1, rdtype)
     # Z[(-k) % m] == roll(flip(Z), 1): reverse/slice HLOs instead of a
-    # gather (gathers run ~60x off bandwidth on the v5e)
+    # gather
     Zc = carray.conj(carray.roll(carray.flip(Z, [-1]), 1, -1))
     E = (Z + Zc) * 0.5
     Od = (Z - Zc) * 0.5          # = i * O

@@ -3,10 +3,10 @@ window folded into the transform stage.
 
 The standard one-sided path (spectra._power_spectrum_via_rfft) composes
 detrend -> window multiply -> stacked rfft -> epilogue reshape -> |.|^2 ->
-Hermitian mirror.  On a bandwidth-bound TPU the epilogue dominates the
-non-dot traffic: it restores standard order on the full *stacked complex*
-array (one transpose copy + reshape + layout copy measured on the v5e)
-only for |.|^2 to immediately halve the data.  This path instead:
+Hermitian mirror.  When memory bandwidth binds, the epilogue dominates
+the non-dot traffic: it restores standard order on the full *stacked
+complex* array only for |.|^2 to immediately halve the data.  This path
+instead:
 
 1. runs |F|^2 directly on the engine's deferred-interleave digit layout
    (``stacked_fft.fft_nd_stacked(raw=True)``) — elementwise math does not
@@ -27,10 +27,10 @@ plus an up-front transpose to the dot chain's preferred free-dim order
 
 Together with the Hermitian mirror this computes the reference's
 ``power_spectrum`` (``/root/reference/xrft/xrft.py:685-750``) semantics
-for real input at 31 -> ~21 ms/iteration on the 8x4096x4096 v5e flagship
-(wall clock is the arbiter here: XLA's bytes-accessed figure does NOT
-track it once DMA copies overlap the MXU dots — the chosen layout issues
-more cost-model bytes than the alternatives and is 2-5 ms faster).
+for real input.  It serves only the matmul engine
+(``config.fft_engine="matmul"``), plain JAX kept reachable until
+ROADMAP.md Design 1.2 removes it; on the default XLA FFT the generic path
+runs.
 """
 
 from __future__ import annotations
@@ -96,7 +96,7 @@ def _host_window(window, n: int) -> np.ndarray:
 def _window_multiply(data, window, dims, axes, sizes, rdt):
     """Explicit separable window multiply (one broadcast multiply per
     transform axis), shared by the fused one-sided route (window-only
-    placement rule, see the census note in _fused_raw_rfft) and the
+    placement rule, see the note in _fused_raw_rfft) and the
     packed route (whose y factor differs between packed planes, so the
     engine's per-axis pre_weights cannot carry it)."""
     import jax.numpy as jnp
@@ -133,11 +133,11 @@ def _steered_front(da, dims, half_dim, kwargs):
     _check_bad_transform_coords(da, dims)
 
     orig_dims = da.dims
-    # Input layout (measured on the v5e, scripts/perf_psd_variants.py):
-    # XLA's layout assignment wants the first dot's free transform dim
-    # physically major; fed that order the whole dot chain runs without a
-    # single relayout copy, while e.g. [t,y,x] input pays one full-array
-    # copy before the first dot AND one between the axes (+2.2 GB).  So
+    # Input layout: XLA's layout assignment wants the first dot's free
+    # transform dim physically major; fed that order the whole dot chain
+    # runs without a single relayout copy, while e.g. [t,y,x] input pays
+    # one full-array copy before the first dot AND one between the axes.
+    # So
     # the path transposes to [non-half transform dims, batch dims, half]
     # up front, behind an optimization_barrier — without the barrier XLA
     # fuses the transpose into the elementwise pass and re-inserts both
@@ -147,11 +147,9 @@ def _steered_front(da, dims, half_dim, kwargs):
     # chains the last batch dim occupies the sublane (second-minor) slot
     # of every intermediate (the just-transformed axis's digits move to
     # the front, the next axis's final digit stays minor), so a tiny
-    # segment dim there pads 4->8 under the v5e's (8, 128) tiling — a 2x
-    # traffic blowup on the largest arrays in the pipeline.  Measured on
-    # the segmented (Welch) flagship: raw engine 14.75 -> 13.04 ms, and
-    # the restore pass's read side un-pads too
-    # (scripts/perf_welch_layout.py / perf_welch_stages.py).
+    # segment dim there pads up to the (8, 128) tile an XLA layout
+    # may use — up to a 2x traffic blowup on the largest arrays in the
+    # pipeline.
     def _sublane_pad(d):
         s = da.sizes[d]
         if s == 0:
@@ -205,17 +203,12 @@ def _fused_raw_rfft(da, dims, half_dim, shift, kwargs):
     rdt = ctx["rdt"]
     detrend = kwargs.get("detrend")
 
-    # Placement rules, each measured on the v5e flagship in one chip
-    # session (scripts/perf_cliff_fix.py; root cause census in
-    # scripts/census_cliff.py): the champion detrend+window program owes
-    # ~1.4 ms to the pre_weights multiply's copy pipeline after the
-    # x-axis dots DECOUPLING the y-axis dots from the detrend-laden
-    # input fusion — a schedule effect, not traffic (the faster program
-    # accesses +5 GB more by XLA's own cost model).
-    #   detrend+window: engine pre_weights           17.72 ms  (champion)
-    #   detrend only:   inter-axis barrier           18.02     (vs 19.14)
-    #   window only:    explicit multiply            19.21     (barrier: 24.9)
-    #   bare:           nothing                      19.60     (barrier: 22.0)
+    # Placement rules (chosen by measurement when this engine was tuned;
+    # not re-measured on the GPU): with detrend+window the window rides
+    # the engine's pre_weights, which decouples the y-axis dots from the
+    # detrend-laden input fusion (a schedule effect, not traffic);
+    # detrend alone takes an inter-axis barrier; window alone an explicit
+    # multiply; bare input nothing.
     pre_weights = None
     if window is not None and detrend is not None:
         pre_weights = {ax: _host_window(window, da.sizes[d])
@@ -255,18 +248,14 @@ def _one_sided_labeled(std, ctx, dims, half_dim, shift, prefix, name):
 
 
 def fused_one_sided_psd(da, dims, half_dim, shift, scale, kwargs,
-                        want_padded=False, half_factor=None):
+                        half_factor=None):
     """One-sided PSD of real `da` over `dims` as a single fused program.
 
-    Returns ``(out, padded)``: `out` is a LabeledArray shaped like
-    ``fft(da, real_dim=half_dim)`` — frequency dims renamed/coord'ed,
-    non-half axes fftshifted when ``shift`` — whose data is already
-    ``scale * |F|^2`` (``scale`` folds true-amplitude and
-    density/window-correction factors).  The caller expands it to the
-    two-sided grid via the Hermitian mirror.  With ``want_padded`` the
-    second element is the UNSLICED engine-width array (half axis last,
-    caller dim order) for the Pallas mirror kernel — the slice that
-    produces `out.data` is then dead code under jit.
+    Returns a LabeledArray shaped like ``fft(da, real_dim=half_dim)`` —
+    frequency dims renamed/coord'ed, non-half axes fftshifted when
+    ``shift`` — whose data is already ``scale * |F|^2`` (``scale`` folds
+    true-amplitude and density/window-correction factors).  The caller
+    expands it to the two-sided grid via the Hermitian mirror.
 
     ``half_factor`` — optional 1-D per-frequency vector over the
     one-sided half axis (standard order, e.g. the real-dim doubling
@@ -285,22 +274,10 @@ def fused_one_sided_psd(da, dims, half_dim, shift, scale, kwargs,
             layout.prune_axis)
         psd = psd * jnp.asarray(fac)
     order_in_transposed = [ctx["newdims"].index(d) for d in orig_dims]
-    padded = None
-    if want_padded:
-        padded = stacked_fft.raw_to_standard(psd, layout,
-                                             axis_order=order_in_transposed,
-                                             prune_slice=False)
-        half_pos = orig_dims.index(half_dim)
-        n = ctx["da"].sizes[half_dim]
-        import jax.lax as _lax
-
-        std = _lax.slice_in_dim(padded, 0, n // 2 + 1, axis=half_pos)
-    else:
-        std = stacked_fft.raw_to_standard(psd, layout,
-                                          axis_order=order_in_transposed)
-    out = _one_sided_labeled(std, ctx, dims, half_dim, shift, prefix,
-                             ctx["da"].name)
-    return out, padded
+    std = stacked_fft.raw_to_standard(psd, layout,
+                                      axis_order=order_in_transposed)
+    return _one_sided_labeled(std, ctx, dims, half_dim, shift, prefix,
+                              ctx["da"].name)
 
 
 def fused_cross_applicable(da1, da2, dims, half_dim, shift, kwargs,

@@ -1,4 +1,4 @@
-"""Hermitian row-pair packed two-sided PSD (round-3 perf work).
+"""Hermitian row-pair packed two-sided PSD (matmul engine only).
 
 The fused one-sided route (:mod:`.psd_fused`) computes an rfft over the
 half axis for every row of every other transform axis, then pays a
@@ -34,15 +34,14 @@ Numerically the combine adds ~1 ulp of f32 elementwise error on top of
 the engine's ~1.6e-7; the route is pinned against the generic path at
 1e-12 in f64 (tests/test_psd_packed.py).
 
-**Measured result: NET LOSS — default-disabled** (``config.psd_packed =
-"never"``).  On the v5e flagship (8x4096x4096 windowed+detrended PSD)
-this route measured 55.3 ms/iter vs 20.9 for the one-sided fused +
-mirror route (scripts/perf_packed_ab.py, bit-parity 1.3e-7).  Why the
-classic packing identity does NOT pay here: the one-sided stacked
-engine already exploits input realness — its level-0 dots contract a
-real operand (half the MACs of a complex dot) and the rfft axis prunes
-half its final-level weight columns — so packing's "half-size
-transform" performs the SAME MXU work, merely rearranged; meanwhile the
+**Default-disabled** (``config.psd_packed = "never"``): on the
+accelerator it was written for it measured a net loss against the
+one-sided fused + mirror route.  Why the classic packing identity does
+NOT pay here: the one-sided stacked engine already exploits input
+realness — its level-0 dots contract a real operand (half the MACs of a
+complex dot) and the rfft axis prunes half its final-level weight
+columns — so packing's "half-size transform" performs the SAME matmul
+work, merely rearranged; meanwhile the
 combine must read both standard-layout planes plus their
 flip+roll(negation-map) partners, several extra bandwidth-bound passes
 that the mirror route never pays.  Kept as an opt-in with parity tests:

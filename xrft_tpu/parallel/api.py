@@ -4,7 +4,7 @@
 pipelines of :mod:`..transform` / :mod:`..spectra` with the core transform
 routed through the pencil decomposition and the input sharded over a device
 mesh.  Batch (non-transform) dims parallelize with zero collectives — the
-TPU analogue of dask-chunked loop dims; sharded transform dims use
+analogue of dask-chunked loop dims; sharded transform dims use
 ``all_to_all`` pencil transposes (which the reference's dask backend cannot
 do at all).
 
@@ -188,9 +188,9 @@ def sharded_isotropic_power_spectrum(da: LabeledArray, mesh: Mesh,
                                      **iso_kwargs) -> LabeledArray:
     """:func:`xrft_tpu.isotropic_power_spectrum` over a device mesh.
 
-    The PSD runs through the pencil engine; the azimuthal one-hot
-    aggregation contracts the (possibly sharded) flattened spectral dims,
-    with GSPMD inserting the reduction collectives."""
+    The PSD runs through the pencil engine; the azimuthal scatter-add
+    aggregates the (possibly sharded) flattened spectral dims, with GSPMD
+    inserting the reduction collectives."""
     from ..isotropic import isotropic_power_spectrum
 
     da, dim_shards, iso_kwargs = _prepare(da, mesh, dim_shards, iso_kwargs)
@@ -229,8 +229,7 @@ def sharded_cross_phase(da1: LabeledArray, da2: LabeledArray, mesh: Mesh,
 
 
 # ---------------------------------------------------------------------------
-# Generic mesh wrapper for every remaining public estimator (VERDICT r4
-# item 4): functions whose transform axis has no pencil decomposition run
+# Generic mesh wrapper for every remaining public estimator: functions whose transform axis has no pencil decomposition run
 # under GSPMD with batch (non-transform) dims sharded — the dask-chunk
 # analogue — and REJECT a sharded transform dim with a prescriptive error
 # instead of silently gathering.
@@ -281,7 +280,7 @@ def sharded(fn, da, *args, mesh: Mesh, dim_shards: dict[str, str],
     dims may then be sharded); every other estimator runs under GSPMD
     with the input sharded over **batch dims only** — sharding a
     transform dim raises a prescriptive error rather than silently
-    paying a gather.  The TPU analogue of the reference's dask rule that
+    paying a gather.  The analogue of the reference's dask rule that
     transform dims must be single-chunk
     (``/root/reference/xrft/tests/test_xrft.py:166-170``), except batch
     parallelism needs no rechunking and the pencil routes lift the

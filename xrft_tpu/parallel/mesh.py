@@ -1,7 +1,7 @@
 """Mesh construction and LabeledArray sharding helpers.
 
 The reference's sole parallelism mechanism is dask chunking (SURVEY.md
-§2.2); its TPU-native replacement is ``jax.sharding``: batch (non-transform)
+§2.2); its replacement here is ``jax.sharding``: batch (non-transform)
 dims shard freely across a device mesh with zero collectives — the direct
 analogue of dask's embarrassingly parallel chunked dims — while transform
 dims use the pencil decomposition in :mod:`.pencil`.
@@ -30,15 +30,17 @@ def make_mesh(axis_shapes: dict[str, int | tuple[int, str]] | None = None
     devices.
 
     Topology hints (SURVEY §7 stage 6 "DCN-aware axis ordering"): a value
-    may be ``(size, link)`` with link ``"ici"`` (intra-slice, fast) or
-    ``"dcn"`` (inter-slice, ~10-100x lower bandwidth), e.g.
-    ``{"dp": (2, "dcn"), "fp": (8, "ici")}``.  Two effects:
+    may be ``(size, link)`` with link ``"ici"`` (the fast interconnect
+    inside a host: NVLink between the cards of one GPU host) or ``"dcn"``
+    (the network between hosts, an order of magnitude slower), e.g.
+    ``{"dp": (2, "dcn"), "fp": (4, "ici")}``.  Two effects:
 
     1. DCN axes are made *outermost* (slowest-varying) in device order, so
-       on a multi-slice deployment each ICI axis's device group stays
-       within one slice and its collectives ride the ICI — the standard
-       hybrid-mesh recipe (``mesh_utils.create_hybrid_device_mesh``; on a
-       single-granule host this degrades to a plain reordered mesh).
+       on a multi-host deployment each ICI axis's device group stays
+       within one host (one process) and its collectives ride NVLink — the
+       hybrid-mesh recipe (``mesh_utils.create_hybrid_device_mesh`` with
+       the process as the granule; on a single-process run this degrades
+       to a plain reordered mesh).
     2. The link map is recorded on the mesh (see :func:`axis_links`); the
        pencil planner (:mod:`.pencil`) orders multi-axis transform chains
        DCN-last and steers DCN all_to_alls toward destinations that never
@@ -71,7 +73,7 @@ def make_mesh(axis_shapes: dict[str, int | tuple[int, str]] | None = None
     # Interning means two independent make_mesh calls can hand back the
     # SAME object: an unhinted call registers NOTHING (it expresses no
     # topology opinion — and a registration would also suppress the
-    # multi-slice warning in axis_links), and a hinted call that
+    # multi-host warning in axis_links), and a hinted call that
     # conflicts with a live registration warns before replacing it — the
     # earlier handle's pencil plans would otherwise silently lose their
     # DCN awareness.
@@ -91,54 +93,48 @@ def make_mesh(axis_shapes: dict[str, int | tuple[int, str]] | None = None
 
 
 def _hybrid_mesh(order, sizes, links) -> Mesh:
-    """Hybrid ICI/DCN mesh: delegate to mesh_utils when the platform
-    exposes multiple granules (real multi-slice), else a plain mesh in
-    DCN-outermost axis order."""
-    try:
-        from jax.experimental import mesh_utils
+    """Hybrid ICI/DCN mesh over ``jax.devices()`` (see
+    :func:`_hybrid_device_grid`)."""
+    devices = jax.devices()
+    if len(_granules(devices)) > 1:
+        return Mesh(_hybrid_device_grid(order, sizes, links, devices),
+                    tuple(order))
+    return jax.make_mesh(tuple(sizes[n] for n in order), tuple(order))
 
-        dcn_shape = [sizes[n] if links[n] == "dcn" else 1 for n in order]
-        ici_shape = [1 if links[n] == "dcn" else sizes[n] for n in order]
-        devs = mesh_utils.create_hybrid_device_mesh(
-            ici_shape, dcn_shape, devices=jax.devices())
-        return Mesh(devs, tuple(order))
-    except Exception as e:
-        # Single-granule hosts (this CI/dev environment) legitimately land
-        # here: create_hybrid_device_mesh requires per-granule attributes
-        # the virtual/CPU devices lack.  On a REAL multi-slice deployment a
-        # silent fallback would put ICI axis groups across slice
-        # boundaries, so warn loudly there instead of swallowing.
-        if len(_granules(jax.devices())) > 1:
-            import warnings
 
-            warnings.warn(
-                f"hybrid ICI/DCN mesh construction failed ({e!r}); falling "
-                f"back to a plain mesh whose ICI axes may span slice "
-                f"boundaries — collectives may ride the DCN.",
-                RuntimeWarning, stacklevel=3)
-        return jax.make_mesh(tuple(sizes[n] for n in order), tuple(order))
+def _hybrid_device_grid(order, sizes, links, devices) -> np.ndarray:
+    """Device array for a mesh spanning several processes (hosts): each
+    DCN axis steps across processes, each ICI axis within one process —
+    ``mesh_utils.create_hybrid_device_mesh`` with the process as the
+    granule."""
+    from jax.experimental import mesh_utils
+
+    dcn_shape = [sizes[n] if links[n] == "dcn" else 1 for n in order]
+    ici_shape = [1 if links[n] == "dcn" else sizes[n] for n in order]
+    return mesh_utils.create_hybrid_device_mesh(
+        ici_shape, dcn_shape, devices=devices, process_is_granule=True)
 
 
 _MESH_LINKS: "weakref.WeakKeyDictionary[Mesh, dict[str, str]]" = \
     weakref.WeakKeyDictionary()
-# meshes already warned about missing hints on multi-slice device sets
+# meshes already warned about missing hints on multi-host device sets
 _WARNED_UNHINTED: "weakref.WeakSet[Mesh]" = weakref.WeakSet()
 
 
 def _granules(devices) -> set:
-    """Distinct slice_index granules among ``devices`` (multi-slice
-    deployments expose one per slice; virtual/CPU devices expose none)."""
-    return {getattr(d, "slice_index", None) for d in devices} - {None}
+    """Distinct processes (hosts) among ``devices``: the granule inside
+    which the fast interconnect joins every device."""
+    return {getattr(d, "process_index", None) for d in devices} - {None}
 
 
 def axis_links(mesh: Mesh) -> dict[str, str]:
     """Per-mesh-axis link type ({axis: 'ici'|'dcn'}); axes of meshes built
     outside :func:`make_mesh` (or without hints) default to 'ici'.
 
-    A mesh that spans multiple slice_index granules but carries no link
+    A mesh that spans several processes (hosts) but carries no link
     registration (e.g. built with the user's own ``jax.make_mesh``) warns
-    once: on real multi-slice hardware the all-ICI default silently plans
-    pencil chains whose collectives may ride the DCN (VERDICT r3 item 6).
+    once: on a multi-host deployment the all-ICI default silently plans
+    pencil chains whose collectives may ride the network between hosts.
     """
     links = _MESH_LINKS.get(mesh)
     if links is None and mesh not in _WARNED_UNHINTED:
@@ -147,7 +143,7 @@ def axis_links(mesh: Mesh) -> dict[str, str]:
             import warnings
 
             warnings.warn(
-                f"mesh spans {n_granules} device slices but has no "
+                f"mesh spans {n_granules} processes (hosts) but has no "
                 f"topology hints registered: pencil plans will assume "
                 f"every axis is ICI, so collectives may ride the DCN. "
                 f"Build the mesh with xrft_tpu.parallel.make_mesh("

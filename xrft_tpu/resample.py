@@ -6,12 +6,11 @@ matching ``scipy.signal.resample`` semantics: transform, truncate or
 zero-pad the spectrum to ``num`` bins (with scipy's Nyquist-bin
 split/fold for even lengths), inverse-transform, scale by ``num/n``.
 
-TPU-first shape: the spectrum surgery is static-shape slicing +
+Shape: the spectrum surgery is static-shape slicing +
 concatenation with a host-constant zero block (XLA fuses it into the
 inverse transform's first dot), the optional spectral window is a host
 constant multiplied in fftfreq order, and the fft/ifft pair rides the
-engine dispatch in :mod:`.ops.fft_core` (split-complex MXU matmul FFT
-on TPU, native XLA FFT on CPU/GPU) — one XLA program end to end.
+engine dispatch in :mod:`.ops.fft_core` — one XLA program end to end.
 
 Coordinate-aware beyond scipy: when the dim carries a coordinate, the
 output coordinate is rebuilt as ``x0 + arange(num) * (dx * n / num)``
@@ -63,7 +62,7 @@ def resample(da, num, dim=None, window=None, domain="time",
     the FFT — ``scipy.signal.resample``: the resampled signal has the
     same band-limited content, so it is exact for signals whose spectrum
     fits in ``min(num, n)`` bins.  Real input gives real output; complex
-    input gives complex (a split pair on TPU).  ``window`` (a scipy
+    input gives complex (a split pair in split mode).  ``window`` (a scipy
     window name/tuple, a callable of the fftfreq grid, or a length-``n``
     ndarray in fftfreq order) multiplies the spectrum before surgery;
     ``domain="freq"`` declares the input already transformed (scipy's

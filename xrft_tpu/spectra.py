@@ -6,8 +6,8 @@ transform core.  The |F|^2 / F1*conj(F2) kernels, the one-sided real-dim
 doubling, the window corrections, and the density/spectrum scalings all
 fuse into the same XLA program as the transform itself.
 
-Complex math is representation-generic (native complex on CPU/GPU, split
-pairs on TPU) via :mod:`.ops.carray`.
+Complex math is representation-generic (native complex by default, split
+pairs under ``complex_mode("split")``) via :mod:`.ops.carray`.
 """
 
 from __future__ import annotations
@@ -127,7 +127,7 @@ def _half_spectrum_dim(da, dim, real_dim, kwargs):
 
     Enabled for the default engine, the named f32 engines, and sharded
     (pencil) engines whose half dim is unsharded — the Hermitian mirror is
-    then a local permutation per shard (VERDICT round-1 item 7)."""
+    then a local permutation per shard."""
     if real_dim is not None:
         return None
     engine = kwargs.get("engine")
@@ -196,7 +196,7 @@ def _hermitian_expand(half, daft, da, dims, half_dim, kwargs, shift,
     src = np.where(mirror, (n - ks) % n, ks)
     # non-half-axis mirror map (-f on the possibly shifted grid) is the
     # permutation o -> (2h - o) mod n == roll(reverse(.), 2h+1-n): pure
-    # reverse/slice HLOs, far cheaper than gathers on TPU.  Sharded
+    # reverse/slice HLOs instead of a gather.  Sharded
     # (pencil-engine) runs use an explicit gather instead — roll's
     # odd-sized slices do not type-check on sharded axes, while GSPMD
     # handles constant-index gathers with the appropriate collective.
@@ -252,7 +252,7 @@ def _hermitian_expand(half, daft, da, dims, half_dim, kwargs, shift,
                     else:
                         # (an explicit concat([row0, flip(rest)]) form of
                         # this flip+roll canonicalizes to the identical
-                        # HLO — measured no-op on the v5e)
+                        # HLO)
                         piece = carray.flip(piece, [a])
                         if sroll:
                             piece = carray.roll(piece, sroll, a)
@@ -274,7 +274,7 @@ def _hermitian_expand(half, daft, da, dims, half_dim, kwargs, shift,
 
 def _two_sided_coords(daft, da, dims, half_dim, kwargs, shift, n_full):
     """Coordinates for the full two-sided grid reconstructed from a
-    one-sided `daft` (shared by the HLO and Pallas mirror paths)."""
+    one-sided `daft`."""
     fd = {d: ce.freq_dim_name(d, kwargs.get("prefix", "freq_")) for d in dims}
     delta = [
         ce.get_coordinate_spacing(_dim_coord(da, d),
@@ -289,35 +289,6 @@ def _two_sided_coords(daft, da, dims, half_dim, kwargs, shift, n_full):
         out_coords[fd[d]] = Coord((fd[d],), g, {"spacing": g[1] - g[0]},
                                   fd[d])
     return out_coords
-
-
-def _mirror_kernel_applicable(da, dims, half_dim) -> bool:
-    """True when the single-pass Pallas mirror kernel can expand this
-    request's one-sided PSD: config/backend allow it, exactly one
-    non-half transform dim sitting immediately left of the trailing half
-    dim, and kernel-friendly (256/512-multiple) sizes."""
-    from .config import config
-    from .ops import pallas_mirror
-
-    impl = config.psd_mirror_impl
-    if impl not in ("xla", "auto", "pallas", "pallas_interpret"):
-        raise ValueError(f"unknown psd_mirror_impl {impl!r}")
-    if impl in ("xla", "auto"):
-        # "auto" resolves to the HLO mirror: the Pallas kernel measured a
-        # net loss in-pipeline (see config.psd_mirror_impl)
-        return False
-    if len(dims) != 2:
-        return False
-    od = da.dims
-    if len(od) < 2 or od[-1] != half_dim:
-        return False
-    other = [d for d in dims if d != half_dim][0]
-    if od[-2] != other:
-        return False
-    n_full = da.sizes[half_dim]
-    ny = da.sizes[other]
-    return pallas_mirror.mirror_applicable(
-        (ny, n_full // 2 + 1), n_full, np.dtype(da.data.dtype))
 
 
 def _power_spectrum_via_rfft(da, dim, half_dim, kwargs, prescale=None):
@@ -360,26 +331,8 @@ def _power_spectrum_via_rfft(da, dim, half_dim, kwargs, prescale=None):
 
     if psd_fused.fused_psd_applicable(da, dims, half_dim, shift, kwargs):
         scale = amp2 if prescale is None else amp2 * prescale
-        want_padded = _mirror_kernel_applicable(da, dims, half_dim)
-        daft, padded = psd_fused.fused_one_sided_psd(
-            da, dims, half_dim, shift, scale, kwargs,
-            want_padded=want_padded)
-        if padded is not None:
-            import jax
-
-            from .config import config
-            from .ops import pallas_mirror
-
-            interp = (config.psd_mirror_impl == "pallas_interpret"
-                      or jax.default_backend() != "tpu")
-            full = pallas_mirror.mirror_two_sided(
-                padded, n_full, shift, interpret=interp)
-            out_dims = list(daft.dims)
-            return LabeledArray(
-                full, dims=out_dims,
-                coords=_two_sided_coords(daft, da, dims, half_dim, kwargs,
-                                         shift, n_full),
-                name=da.name)
+        daft = psd_fused.fused_one_sided_psd(da, dims, half_dim, shift,
+                                             scale, kwargs)
         return _hermitian_expand(daft.data, daft, da, dims, half_dim,
                                  kwargs, shift, conj_mirror=False)
 
@@ -460,9 +413,8 @@ def _try_fused_one_sided(das, dim, real_dim, scaling, window_correction,
     doubling = _doubling_vector(da1.sizes[real_dim])
 
     if len(das) == 1:
-        out, _ = psd_fused.fused_one_sided_psd(
+        return psd_fused.fused_one_sided_psd(
             da1, fdims, real_dim, False, scale, kw, half_factor=doubling)
-        return out
     out = psd_fused.fused_one_sided_cross(
         das[0], das[1], fdims, real_dim, False, scale, kw,
         half_factor=doubling)
@@ -558,9 +510,8 @@ def power_spectrum(
     else:
         # USER-requested one-sided spectrum (real_dim=...): the fused
         # raw-layout route computes exactly this before any mirror, with
-        # the real-dim doubling folded into the |.|^2 pass — the generic
-        # fft()+abs2 path below costs ~1.5-2x more at flagship scale
-        # (scripts/perf_welch_stages.py)
+        # the real-dim doubling folded into the |.|^2 pass (matmul engine
+        # only; the default engine takes the generic fft()+abs2 path)
         if real_dim is not None:
             out = _try_fused_one_sided((da,), dim, real_dim, scaling,
                                        window_correction, False, kwargs)

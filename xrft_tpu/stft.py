@@ -9,7 +9,7 @@ fully covered, 'spectrum' (1/sum(w)) or 'psd' scaling, one-sided for
 real input, and the NOLA-normalized weighted overlap-add inverse
 ``x[n] = sum_k w[n-kH] y_k[n-kH] / sum_k w^2[n-kH]``.
 
-TPU-first shape: the forward rides the same strided slice-stack +
+Shape: the forward rides the same strided slice-stack +
 batched rfft route as the Welch/spectrogram estimators (one XLA
 program, no gathers); the inverse's overlap-add uses a pure reshape
 decomposition when ``hop | seglen`` (the scipy default — ``q =

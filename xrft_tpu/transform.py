@@ -2,7 +2,7 @@
 amplitude handling.
 
 Re-implements the semantics of the reference transform core
-(``/root/reference/xrft/xrft.py:307-646``) TPU-first: every decision driven
+(xrft's ``xrft/xrft.py:307-646``) for jit: every decision driven
 by coordinates — spacings, lags, frequency grids, axis flips, shifts,
 phase factors — is computed host-side at trace time and baked into the
 compiled program as constants; the bulk-data path (flip → ifftshift →
@@ -111,7 +111,7 @@ def _degrade_quad(da: LabeledArray) -> LabeledArray:
 def _stack_segments(da: LabeledArray, dim, suffix="_segment",
                     overlap=None, plan=None) -> LabeledArray:
     """Reshape each transform dim into (<dim>_segment, <dim>) according to
-    the array's declared chunk lengths (Welch/Bartlett segmenting; the TPU
+    the array's declared chunk lengths (Welch/Bartlett segmenting; the
     analogue of the reference's dask-chunk reshape ``_stack_chunks``,
     ``/root/reference/xrft/xrft.py:106-136``).
 
@@ -136,8 +136,8 @@ def _stack_segments(da: LabeledArray, dim, suffix="_segment",
 
 def _slice_stack_axis(data, ax, nseg, seglen, hop):
     """(…, n, …) → (…, nseg, seglen, …) strided windows along axis ``ax``
-    as a stack of static slices (bandwidth-bound copies; never a gather —
-    gathers run far off bandwidth on TPU)."""
+    as a stack of static slices (bandwidth-bound copies; never a
+    gather)."""
     import jax.numpy as jnp
 
     def one(v):
@@ -273,8 +273,8 @@ def fft(
         warnings.warn(_real_flag_warning, FutureWarning)
 
     if engine == "hp":
-        # high-precision path: df64 elementwise + int8-limb MXU DFT
-        # (~1e-13 on-chip; see highprec.fft_hp).  Segmenting is a pure
+        # high-precision path: native float64 under x64, else df64
+        # elementwise + int8-limb DFT (see highprec.fft_hp).  Segmenting is a pure
         # metadata reshape of the (still low-precision-representable)
         # input, so it happens before the df64 promotion.
         from .highprec import fft_hp

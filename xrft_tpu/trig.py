@@ -6,7 +6,7 @@ Beyond the reference (xrft exposes only Fourier transforms,
 {None/'backward', 'ortho', 'forward'}, same-length real output, and the
 scipy inverse pairings (1<->1, 2<->3, 4<->4).
 
-TPU-first shape: every type rides the cross-validated engine dispatch in
+Shape: every type rides the cross-validated engine dispatch in
 :mod:`.ops.fft_core` rather than a dedicated cosine kernel —
 
 * **DCT-I / DST-I**: even / odd extension (a host-static gather) and one
@@ -18,8 +18,8 @@ TPU-first shape: every type rides the cross-validated engine dispatch in
   symmetric): twiddle the input, FFT, inverse-permute the real plane.
 * **DST-II / DST-III**: the classical sign-flip/reversal reductions onto
   DCT-II / DCT-III.
-* **DCT-IV / DST-IV**: a single half-shifted trig matrix contracted on the
-  MXU (``O(N^2)`` but one dot — the natural TPU shape for the rare
+* **DCT-IV / DST-IV**: a single half-shifted trig matrix contracted in
+  one dot at ``precision=HIGHEST`` (``O(N^2)``, for the rare
   boundary-condition variants; the matrix is a host constant).
 
 All reorderings, twiddles, permutations, and norm factors are host/static

@@ -3,9 +3,9 @@
 When xarray is installed, :func:`from_xarray` / :func:`to_xarray` convert
 between ``xarray.DataArray`` and :class:`~xrft_tpu.labeled.LabeledArray`
 losslessly (dims, 1-D and multi-dim coords, attrs, name), so existing
-xrft-based analysis code can move to the TPU pipelines by converting at the
-boundary.  xarray is not a dependency of this package (it is absent from
-the TPU image this framework targets); both functions raise a clear
+xrft-based analysis code can move to these pipelines by converting at the
+boundary.  xarray is not a dependency of this package (it is not among the
+packages the GPU deployment guarantees); both functions raise a clear
 ImportError without it.
 """
 
